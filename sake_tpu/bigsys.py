@@ -17,8 +17,8 @@ analog of long-context attention engineering (SURVEY §5.7):
   ``ppermute`` ring is the bandwidth-optimal refinement when gathered
   senders no longer fit).
 
-Built on the kernel-side functional model (pytree params, keepdims plane
-geometry); convert linen params with ``kernels.model_params_from_linen``.
+Built on the functional model (pytree params, coordinate-plane geometry);
+convert linen params with ``kernels.model_params_from_linen``.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from sake_tpu.kernels.functional import (
     _readout,
     _silu,
 )
+from sake_tpu.sparse import _min_image
 
 
 def _slice_j(a, j0, jn, axis=1):
@@ -140,6 +141,7 @@ def blocked_layer_forward(
     mask: Optional[jax.Array] = None,  # (B, Ni, Nj)
     matmul_dtype=None,
     remat: bool = False,
+    box=None,  # (3,) periodic box: minimum-image displacements
 ):
     """One dense SAKE layer over receivers [off, off+Ni) with the sender
     axis scanned in ``block_size`` chunks (online softmax, two passes).
@@ -179,6 +181,8 @@ def blocked_layer_forward(
         """(h_e, masked logits, d planes, r) for sender block [j0, j0+bs)."""
         xj = [_slice_j(pk, j0, block_size) for pk in x_send]
         d = [pj[:, None, :, :] - pi[:, :, None, :] for pi, pj in zip(x_recv, xj)]
+        if box is not None:
+            d = [_min_image(dk, box[k]) for k, dk in enumerate(d)]
         r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
         r = jnp.sqrt(jax.nn.relu(r2) + EPSILON)  # (B, Ni, bs, 1)
         pre = (
@@ -236,9 +240,13 @@ def blocked_layer_forward(
         h_e, logits, d, r = edge_block(j0)
         att = jnp.exp(logits - m[:, :, None, :]) / z[:, :, None, :]
         # masked pairs have logit -INF -> att 0; att sums to 1 over real
-        # senders, matching the dense path's mask-renormalized attention
+        # senders, matching the dense path's mask-renormalized attention.
+        # A receiver with no real sender has all logits at -INF, so the
+        # softmax is uniform there: the mask zeroes it, as the dense path
+        # does.
         if mask is not None:
             mblk = _slice_j(mask, j0, block_size, axis=2)
+            att = att * mblk[..., None]
             att_count = att_count + mblk.sum(axis=2)[..., None]
         coeff_pre = jnp.zeros((B, Ni, block_size, C))
         he2d = h_e.reshape(-1, H)
@@ -314,11 +322,14 @@ def blocked_model_forward(
     mask: Optional[jax.Array] = None,
     matmul_dtype=None,
     remat: bool = False,
+    box=None,  # (3,) periodic box: minimum-image displacements
 ):
     """Full model with blocked layers (single device, O(N*block) memory).
 
     ``remat=True`` makes that bound hold for ``jax.grad`` (forces /
-    training) too — see ``blocked_layer_forward``."""
+    training) too — see ``blocked_layer_forward``. With ``box`` and the
+    densified neighbor mask it is the dense reference for the periodic
+    cutoff-sparse path."""
     depth = len(p.layers)
     updates = [update] * depth if isinstance(update, bool) else list(update)
     mm = _make_mm(matmul_dtype)
@@ -329,7 +340,7 @@ def blocked_model_forward(
         hc, xp, vp = blocked_layer_forward(
             lp, hc, xp, vp,
             n_heads=n_heads, update=upd, block_size=block_size, mask=mask,
-            matmul_dtype=matmul_dtype, remat=remat,
+            matmul_dtype=matmul_dtype, remat=remat, box=box,
         )
     out = _readout(p, hc, mm)
     x_out = jnp.concatenate(xp, axis=-1)
@@ -405,8 +416,8 @@ def atom_sharded_forward(
 
 
 # Above this many atoms the all-gather formulation's O(n_local * N)
-# gathered edge working set stops fitting comfortably in HBM alongside
-# activations; the ring keeps O(n_local^2) blocks and neighbor-only ICI
+# gathered edge working set stops fitting comfortably in device memory beside
+# activations; the ring keeps O(n_local^2) blocks and neighbor-only
 # traffic. The crossover is memory- not latency-driven, so it scales with
 # atom count only.
 RING_CROSSOVER_ATOMS = 4096
@@ -565,8 +576,8 @@ def ring_layer_forward(
     rescaling cannot cross the nonlinearity): pass 1 accumulates the
     (max, sum) statistics, pass 2 the attention-weighted aggregates.
     Peak activation memory is O(n_local^2) vs the gather path's
-    O(n_local * N); comm volume is ~2x an all-gather, riding ICI
-    neighbor links only.
+    O(n_local * N); comm volume is ~2x an all-gather, in
+    neighbor-to-neighbor transfers only.
 
     ``m_loc`` (node-mask plane, 1 = real atom) enables padded systems:
     sender masks travel the ring with the node halves; masked edges get

@@ -1,6 +1,6 @@
 """Batch collation: padding, edge masks, and length-bucketing.
 
-Static shapes are the whole game on TPU — XLA compiles one program per
+Static shapes are the whole game under XLA — it compiles one program per
 distinct shape. Two strategies, mirroring (and fixing) the reference:
 
 - **Padded batches** (QM9 pattern, ``scripts/qm9_full/run.py:23-27``): pad

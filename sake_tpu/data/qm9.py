@@ -1,6 +1,6 @@
 """QM9 property-regression dataset (padded batches + masks).
 
-Loads the packaged QM9 .npz the reference's TPU script fetches
+Loads the packaged QM9 .npz the reference's qm9 script fetches
 (``scripts/qm9_tpu/run.sh:1-7``; arrays: per-molecule padded charges ``i``,
 positions ``x``, targets ``y``) when a local copy exists; otherwise
 synthesizes a structurally identical dataset (29-atom padding, one-hot

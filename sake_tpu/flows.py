@@ -201,7 +201,7 @@ class AugmentedFlowModel(nn.Module):
     """Stack of alternating coupling layers, scanned on-device.
 
     Capability parity with the reference's ``depth`` pairs of (x->v, v->x)
-    couplings (``sake/flows.py:146-188``), restructured TPU-first: the
+    couplings (``sake/flows.py:146-188``), restructured for XLA: the
     reference (and our round-1 port) unrolled ``2*depth`` separately traced
     conditioner models per direction — compile time linear in depth. Here
     the ``2*depth`` coupling layers share ONE traced conditioner

@@ -11,7 +11,7 @@ Behavioral contract follows the reference (``sake/functional.py:4-44``):
 
 All functions are pure, shape-polymorphic over leading batch dims, and
 trace to static-shape XLA programs (no data-dependent control flow), so
-they fuse cleanly under ``jit`` and tile onto the MXU/VPU.
+they fuse cleanly under ``jit``.
 
 Convention: for positions ``x`` with shape ``(..., N, 3)``, the pairwise
 tensor ``pairwise_displacement(x)[..., i, j, :] == x[j] - x[i]``; axis

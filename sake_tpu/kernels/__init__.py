@@ -1,9 +1,10 @@
-"""Fused Pallas TPU kernels and their functional/lax reference forms."""
+"""The functional (pytree-parameterized) SAKE model and its linen adapter."""
 
 from sake_tpu.kernels.functional import (
     ModelParams,
     LayerParams,
     CFConvParams,
+    init_model_params,
     model_forward,
     energy_and_forces_fn,
 )
@@ -11,26 +12,14 @@ from sake_tpu.kernels.adapter import (
     model_params_from_linen,
     layer_params_from_linen,
 )
-from sake_tpu.kernels.dispatch import dispatch_energy_forces
-from sake_tpu.kernels.fused_ef import fused_energy_forces
-from sake_tpu.kernels.fori_ef import fori_energy_forces
-from sake_tpu.kernels.one_ef import one_energy_forces
-from sake_tpu.kernels.resid_ef import make_hidden_fn, resid_energy_forces
-from sake_tpu.kernels.train_ef import make_trainable_energy_forces
 
 __all__ = [
     "ModelParams",
     "LayerParams",
     "CFConvParams",
+    "init_model_params",
     "model_forward",
     "energy_and_forces_fn",
     "model_params_from_linen",
     "layer_params_from_linen",
-    "dispatch_energy_forces",
-    "fused_energy_forces",
-    "fori_energy_forces",
-    "one_energy_forces",
-    "resid_energy_forces",
-    "make_hidden_fn",
-    "make_trainable_energy_forces",
 ]

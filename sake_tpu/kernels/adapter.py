@@ -1,4 +1,4 @@
-"""Adapter: linen parameter trees -> kernel ``ModelParams`` pytrees."""
+"""Adapter: linen parameter trees -> functional ``ModelParams`` pytrees."""
 
 from __future__ import annotations
 
@@ -61,19 +61,9 @@ def layer_params_from_linen(lp) -> LayerParams:
     )
 
 
-def stack_layer_params(layers) -> LayerParams:
-    """Stack per-layer ``LayerParams`` into one pytree with a leading depth
-    axis — the form the fused kernel's in-kernel layer loop consumes (the
-    layer body is traced ONCE and iterated with ``lax.fori_loop``, keeping
-    Mosaic compile time flat in depth)."""
-    import jax
-
-    return jax.tree.map(lambda *xs: jnp.stack(xs), *layers)
-
-
 def model_params_from_linen(params) -> ModelParams:
     """Convert a ``SAKEModel`` linen param tree (``{"params": {...}}`` or
-    the inner dict) to the kernel pytree."""
+    the inner dict) to the functional pytree."""
     tree = params.get("params", params)
     n_layers = sum(1 for k in tree if k.startswith("layer_"))
     layers = tuple(

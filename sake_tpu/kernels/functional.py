@@ -1,12 +1,14 @@
-"""Functional (pytree-parameterized) SAKE model — the kernel-side math.
+"""Functional (pytree-parameterized) SAKE model.
 
-A pure-function reformulation of ``sake_tpu.layers.DenseSAKELayer`` /
-``models.SAKEModel`` used inside Pallas kernels (whose bodies trace plain
-jnp code on VMEM-resident values) and as the lax oracle for kernel parity
-tests. Numerics match the linen path (fp32 reassociation only; the same
-EPSILON/masking constants).
+A pure-function form of ``sake_tpu.layers.DenseSAKELayer`` /
+``models.SAKEModel``: parameters are the ``ModelParams`` pytree
+(``init_model_params``, or ``adapter.model_params_from_linen`` for linen
+trees), so the model runs with nothing but JAX. It is the dense E+F path
+of the md17/iso17 tasks and the model that ``sparse``, ``bigsys`` and
+``parallel`` build on. Numerics match the linen path (fp32 reassociation
+only; the same EPSILON/masking constants).
 
-TPU/Mosaic-specific reformulations (same math, hardware-shaped):
+Reformulations of the reference math (same results):
 
 - **Node-level factorization of edge matmuls.** Every edge Dense whose
   input is the ``[h_j, h_i]`` broadcast-concat splits into two *node*-level
@@ -14,21 +16,19 @@ TPU/Mosaic-specific reformulations (same math, hardware-shaped):
   ``concat(h_j, h_i) @ W = (h @ W_top)_j + (h @ W_bot)_i`` — an N-fold
   FLOP cut on the widest matmuls vs the reference's per-edge form
   (``sake/layers.py:30``).
-- **Coordinate planes, keepdims style.** Positions/velocities/forces are
-  threaded as three ``(B, N, 1)`` planes; a 3-wide minor dimension maps
-  terribly onto 128-lane vregs, and minor singleton dims are never
-  created/removed mid-graph (the AD transposes of such expands are
-  squeeze-reshapes Mosaic rejects).
-- **Per-head splitting instead of (H*K)-flattening.** The attended edge
-  tensor ``h_e (x) att`` is never reshaped to width H*K (a minor-dims
-  shape cast Mosaic refuses); its consumers (x_mixing, aggregation, node
-  MLP) are decomposed into K per-head matmuls against weight slices.
+- **Coordinate planes.** Positions, velocities and forces are threaded as
+  three ``(B, N, 1)`` component planes, so every geometric quantity is a
+  broadcast of per-component edge grids ``(B, N, N, 1)``.
+- **Per-head splitting.** The attended edge tensor ``h_e (x) att`` of
+  width H*K is never formed; its consumers (x_mixing, aggregation, node
+  MLP) are sums of K per-head matmuls against weight slices.
 - **Pooled spatial attention**: the (N, N, C, 3) combination field of the
   reference (``sake/layers.py:118``) is never built.
 """
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Sequence
 
 import jax
@@ -81,17 +81,91 @@ class ModelParams(NamedTuple):
     b_out1: jax.Array
 
 
+NUM_RBF = 50  # ContinuousFilterConv.kernel_features (blocks.py)
+
+
+def _per_layer(update, depth: int) -> list:
+    return [update] * depth if isinstance(update, bool) else list(update)
+
+
+def init_model_params(
+    key: jax.Array,
+    in_features: int,
+    *,
+    hidden_features: int,
+    depth: int,
+    n_heads: int,
+    update: Sequence[bool] | bool = True,
+) -> ModelParams:
+    """Fresh ``ModelParams`` for a SAKE energy model (one output per atom).
+
+    The tree and shapes equal ``model_params_from_linen(SAKEModel(
+    hidden_features, out_features=1, depth, n_heads=n_heads,
+    update=update).init(key, h, x, v))`` (initialized with a velocity, so
+    every update layer has its velocity head) and the initial
+    distributions are linen's:
+    lecun-normal Dense kernels, zero biases, and the PhysNet RBF means and
+    betas of ``radial.ExpNormalSmearing``. Layers without an update head
+    carry zero-valued placeholders, as the adapter gives them. The values
+    differ from a linen init with the same key (linen derives one key per
+    module path).
+    """
+    F, H, K, R = hidden_features, hidden_features, n_heads, NUM_RBF
+    C = K * H
+    lecun = jax.nn.initializers.lecun_normal()
+    keys = iter(jax.random.split(key, 3 + 12 * depth))
+
+    def dense(fan_in, fan_out):
+        return lecun(next(keys), (fan_in, fan_out), jnp.float32)
+
+    def zeros(*shape):
+        return jnp.zeros(shape, jnp.float32)
+
+    start = math.exp(-5.0)  # cutoff (0, 5): exp(-(upper - lower))
+    beta = (2.0 / R * (1.0 - start)) ** -2
+
+    w_embed = dense(in_features, H)
+    layers = []
+    for upd in _per_layer(update, depth):
+        # every leaf its own buffer: a donated state may not alias
+        edge = CFConvParams(
+            w_in=dense(2 * F, R), b_in=zeros(R),
+            rbf_means=jnp.linspace(start, 1.0, R, dtype=jnp.float32),
+            rbf_betas=jnp.full((R,), beta, jnp.float32),
+            w_out0=dense(2 * F + R + 1, H), b_out0=zeros(H),
+            w_out1=dense(H, H), b_out1=zeros(H),
+        )
+        lp = LayerParams(
+            edge=edge,
+            w_sem=dense(H, K), b_sem=zeros(K),
+            w_xmix=dense(H * K, C),
+            w_post0=dense(C, H), b_post0=zeros(H),
+            w_post1=dense(H, H), b_post1=zeros(H),
+            w_node0=dense(F + H * K + H, H), b_node0=zeros(H),
+            w_node1=dense(H, F), b_node1=zeros(F),
+            w_vmix=dense(C, 1), w_vel0=dense(F, H), b_vel0=zeros(H),
+            w_vel1=dense(H, 1),
+        )
+        if not upd:
+            lp = lp._replace(
+                w_vmix=zeros(C, 1), w_vel0=zeros(F, H), w_vel1=zeros(H, 1)
+            )
+        layers.append(lp)
+    return ModelParams(
+        w_embed=w_embed, b_embed=zeros(H), layers=tuple(layers),
+        w_out0=dense(H, H), b_out0=zeros(H),
+        w_out1=dense(H, 1), b_out1=zeros(1),
+    )
+
+
 def _silu(x):
     return x * jax.nn.sigmoid(x)
 
 
 def _celu2(x):
-    """celu with alpha=2 (reference: ``sake/layers.py:82``).
-
-    Written as ``exp(x/2) - 1`` rather than ``expm1`` (not lowered by
-    Pallas TPU); the expm1 precision advantage near 0 is below fp32 noise
-    for these logits.
-    """
+    """celu with alpha=2 (reference: ``sake/layers.py:82``), written with
+    ``exp``; ``expm1``'s extra precision near 0 is below fp32 noise for
+    these logits."""
     return jnp.where(x > 0, x, 2.0 * (jnp.exp(x / 2.0) - 1.0))
 
 
@@ -109,11 +183,6 @@ def pairwise_geometry_planes(x_planes):
     """``x_planes``: 3 arrays ``(B, N, 1)`` -> (d_planes 3x(B,N,N,1),
     r (B,N,N,1)) with ``d_k[b,i,j] = x_k[b,j] - x_k[b,i]`` and the
     EPSILON-regularized distance (reference ``sake/functional.py:10-19``).
-
-    Planes carry a trailing singleton everywhere ("keepdims style"): minor
-    dimensions are never created or removed mid-graph, because the AD
-    transpose of a trailing ``[..., None]`` expand is a squeeze-reshape
-    that Mosaic's layout inference rejects.
     """
     d = [p[:, None, :, :] - p[:, :, None, :] for p in x_planes]
     r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
@@ -285,7 +354,7 @@ def model_forward_planes(
     matmul_dtype=None,
 ):
     depth = len(p.layers)
-    updates = [update] * depth if isinstance(update, bool) else list(update)
+    updates = _per_layer(update, depth)
     mm = _make_mm(matmul_dtype)
     h = _embed(p, h, mm)
     for lp, upd in zip(p.layers, updates):
@@ -319,77 +388,6 @@ def model_forward(
     return out, x_out, v_out
 
 
-def energy_and_forces_planes(
-    p: ModelParams,
-    h: jax.Array,  # (B, N, F_in)
-    x_planes,  # 3 x (B, N, 1)
-    *,
-    n_heads: int = 4,
-    update: Sequence[bool] | bool = True,
-    mask: Optional[jax.Array] = None,
-    matmul_dtype=None,
-):
-    """Energy and forces with hand-rolled per-layer rematerialization.
-
-    ``jax.checkpoint`` does not lower inside Pallas kernels (no ``remat2``
-    primitive), so the backward pass is staged manually: the forward stores
-    only the tiny per-layer boundary states ``(h, x, v)``; the backward
-    walks the layers in reverse, recomputing each under ``jax.vjp`` and
-    applying the cotangent immediately. Peak AD residency is ONE layer's
-    edge tensors — the property that lets the whole model fit in VMEM.
-
-    Returns ``(e, f_planes)``: per-molecule raw energy ``(B,)`` and force
-    planes ``3 x (B, N, 1)`` (``f = -dE/dx``).
-    """
-    depth = len(p.layers)
-    updates = [update] * depth if isinstance(update, bool) else list(update)
-    mm = _make_mm(matmul_dtype)
-    B, N, _ = h.shape
-
-    def layer_fn(i, vdef):
-        def fn(h_, xp_, vp_):
-            h2, xp2, vp2 = layer_forward_planes(
-                p.layers[i], h_, xp_, vp_ if vdef else None,
-                n_heads=n_heads, update=updates[i], mask=mask,
-                matmul_dtype=matmul_dtype,
-            )
-            if vp2 is None:
-                vp2 = vp_  # pass the placeholder through unchanged
-            return h2, list(xp2), list(vp2)
-
-        return fn
-
-    def readout_e(h_):
-        # 2D output (B, 1): keep minor dims alive for Mosaic
-        return _readout(p, h_, mm).sum(axis=-1).sum(axis=-1, keepdims=True)
-
-    # --- forward: store boundary states only -----------------------------
-    h0 = _embed(p, h, mm)
-    states, vdefs = [], []
-    hc = h0
-    xc = [jnp.asarray(pk) for pk in x_planes]
-    vc = [jnp.zeros_like(pk) for pk in x_planes]
-    vdef = False
-    for i in range(depth):
-        states.append((hc, xc, vc))
-        vdefs.append(vdef)
-        hc, xc, vc = layer_fn(i, vdef)(hc, xc, vc)
-        vdef = vdef or updates[i]
-    e = readout_e(hc)
-
-    # --- backward: recompute layer-by-layer in reverse -------------------
-    _, readout_vjp = jax.vjp(readout_e, hc)
-    (dh,) = readout_vjp(jnp.ones_like(e))
-    dx = [jnp.zeros_like(pk) for pk in x_planes]
-    dv = [jnp.zeros_like(pk) for pk in x_planes]
-    for i in reversed(range(depth)):
-        h_in, x_in, v_in = states[i]
-        _, layer_vjp = jax.vjp(layer_fn(i, vdefs[i]), h_in, x_in, v_in)
-        dh, dx, dv = layer_vjp((dh, dx, dv))
-    # embedding consumes only h; x cotangent is complete at stage 0
-    return e, [-g for g in dx]
-
-
 def energy_and_forces_fn(
     p: ModelParams,
     h: jax.Array,
@@ -400,10 +398,19 @@ def energy_and_forces_fn(
     mask: Optional[jax.Array] = None,
     matmul_dtype=None,
 ):
-    """(B, N, 3) API wrapper: returns ``(e (B,), f (B, N, 3))``."""
-    x_planes = [x[..., k : k + 1] for k in range(3)]
-    e, f_planes = energy_and_forces_planes(
-        p, h, x_planes,
-        n_heads=n_heads, update=update, mask=mask, matmul_dtype=matmul_dtype,
-    )
-    return e[:, 0], jnp.concatenate(f_planes, axis=-1)
+    """Energies ``e (B,)`` (the sum of the per-atom outputs) and forces
+    ``f = -dE/dx (B, N, 3)`` from one forward and one backward pass. Each
+    molecule's forces depend only on its own positions, so the gradient
+    of the batch-summed energy gives every molecule's forces at once.
+    Differentiable in ``p`` (second order, for force-loss training)."""
+
+    def e_sum(x_):
+        out, _, _ = model_forward(
+            p, h, x_, n_heads=n_heads, update=update, mask=mask,
+            matmul_dtype=matmul_dtype,
+        )
+        e = out.sum(axis=(-2, -1))
+        return e.sum(), e
+
+    (_, e), neg_f = jax.value_and_grad(e_sum, has_aux=True)(x)
+    return e, -neg_f

@@ -7,9 +7,10 @@ velocity/position update, making a depth-``D`` stack a ``D``-step learned
 integrator.
 
 Behavioral contract follows the reference ``sake/layers.py``; structure does
-not. The O(N^2) pipeline is also available as a fused Pallas TPU kernel
-(``sake_tpu.kernels``) — this module is the lax/linen path, which XLA already
-fuses well for small N, and the parity oracle for the kernel.
+not. The same math as a pure function of a parameter pytree is
+``sake_tpu.kernels.functional`` (the path the energy/force tasks run);
+this module is the linen front end and the bridge to the upstream
+library's parameter trees.
 
 Shape conventions: ``h (..., N, F)``, ``x (..., N, 3)``, ``v (..., N, 3)``,
 node ``mask (..., N)`` -> edge ``mask (..., N, N)``; axis ``-2`` of edge
@@ -182,7 +183,7 @@ class DenseSAKELayer(nn.Module):
 
         The reference builds that field explicitly (``sake/layers.py:118``)
         and immediately mean-pools it over senders — at batch 256, N=21,
-        C=256 that is a ~350 MB HBM round trip per layer. Both consumers
+        C=256 that is a ~350 MB device-memory round trip per layer. Both consumers
         are linear in the field, so the pool is a single einsum contraction
         over the sender axis:
 

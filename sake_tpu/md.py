@@ -5,7 +5,7 @@ host round trips. Two integrators, both ``lax.scan`` programs:
 
 - ``velocity_verlet_rollout`` — classical symplectic MD driven by a
   learned force field ``(params, x) -> (e, f)`` (e.g. the MD17 model's
-  fused E+F evaluation, lax or Pallas path).
+  fused E+F evaluation).
 - ``learned_integrator_rollout`` — the SAKE-native alternative: a
   ``update=True`` model IS a learned integrator (depth D = D internal
   steps, ``sake/models.py:56-61``); rolling it out autoregressively gives

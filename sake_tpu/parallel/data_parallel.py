@@ -1,6 +1,6 @@
 """shard_map data parallelism.
 
-The TPU-native replacement for the reference's pmap path
+The replacement for the reference's pmap path
 (``scripts/qm9_tpu/run.py:89-95``): the per-device step runs under
 ``shard_map`` with gradients averaged by ``psum`` over the ``data`` axis,
 and — unlike the reference, which drove a python loop around pmap from the

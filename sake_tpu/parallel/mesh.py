@@ -2,8 +2,8 @@
 
 Replaces all three of the reference's distribution tiers (jit / pmap+pmean /
 mpi4jax allreduce — SURVEY §2.9) with one abstraction: a
-``jax.sharding.Mesh`` whose ``data`` axis rides ICI within a slice and DCN
-across slices, programmed with ``shard_map``/``pjit``. No MPI, no
+``jax.sharding.Mesh`` whose collectives ride the device interconnect within
+a host and the network across hosts, programmed with ``shard_map``/``pjit``. No MPI, no
 replicate/unreplicate state juggling.
 """
 
@@ -52,13 +52,15 @@ def initialize_distributed(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> None:
-    """Multi-process initialization (the TPU-pod / multi-host entry).
+    """Multi-process initialization (the multi-host entry).
 
     Replaces the reference's MPI bootstrap (``scripts/ani_mpi/run_mpi.py:
     9-13`` + checkpoint-based weight sync): ``jax.distributed.initialize``
     wires all processes into one global device set; meshes built afterwards
-    span hosts transparently (ICI intra-slice, DCN inter-slice).
-    On TPU pods all arguments are auto-detected from the environment.
+    span hosts transparently.
+    Where no cluster environment describes the processes, pass
+    ``coordinator_address`` (``host:port``), ``num_processes`` and
+    ``process_id`` explicitly.
     """
     jax.distributed.initialize(
         coordinator_address=coordinator_address,

@@ -2,8 +2,8 @@
 
 The reference has no pipeline parallelism at all (its only multi-device
 mode is ``jax.pmap`` data parallelism, ``scripts/qm9_tpu/run.py:89-95``);
-this is the TPU-native depth-scaling layout for SAKE stacks too deep or
-too wide for one chip's HBM: the ``depth`` layers are sharded over a
+this is the depth-scaling layout for SAKE stacks too deep or
+too wide for one device's memory: the ``depth`` layers are sharded over a
 ``pipe`` mesh axis (S stages, L = depth/S contiguous layers each) and the
 batch is split into M microbatches that flow through the stages.
 
@@ -15,7 +15,7 @@ pipeline ticks (a ``lax.scan``):
   depth-stacked layer params — one traced layer body, XLA-friendly) to
   the state it holds (microbatch ``m = t - stage``);
 - the (h, x, v) state is ``ppermute``'d one stage down the ring — the
-  per-tick ICI payload is one microbatch's node-level state,
+  per-tick payload is one microbatch's node-level state,
   ``b * N * (F + 6)`` floats; edge-level tensors never cross chips;
 - the last stage banks its result for microbatch ``t - (S - 1)``.
 
@@ -42,7 +42,7 @@ as in ``data_parallel.make_dp_step``).
 Full 3D parallelism: ``model_axis=`` additionally runs every stage's
 layer body with the spatial-coefficient axis sharded over a ``model``
 mesh axis (``tensor_parallel.tp_layer_forward`` — 2 node-level ``psum``
-collectives per layer riding ICI), so one ``shard_map`` covers
+collectives per layer), so one ``shard_map`` covers
 data x pipe x model on a single 3D mesh.
 """
 

@@ -10,7 +10,7 @@ mesh axis, Megatron-style:
   the coefficients/pooled tensors;
 - row-split the consumers (``w_post0``, ``w_vmix``) -> partial products
   ``psum``'d back to replicated node-level tensors (2 small collectives
-  per layer, riding ICI).
+  per layer).
 
 Everything else (edge model, attention, node aggregation) is replicated
 compute — the standard TP tradeoff at these widths. Declared future work

@@ -1,8 +1,8 @@
 """Radial basis functions and cutoff envelopes.
 
-TPU note: the RBF expansion turns the scalar distance channel into a
-``num_rbf``-wide feature axis — a VPU-friendly elementwise map whose output
-feeds the edge-model matmuls on the MXU. Everything here is static-shape.
+The RBF expansion turns the scalar distance channel into a
+``num_rbf``-wide feature axis — an elementwise map whose output feeds the
+edge-model matmuls. Everything here is static-shape.
 """
 
 from __future__ import annotations

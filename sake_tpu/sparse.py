@@ -5,7 +5,7 @@ broken ``SparseSAKELayer``); ``bigsys`` already bounds *memory* at
 O(N·block) but still does O(N²) *work* — at N=8192 a fused E+F eval is
 ~29 s/chip. Production MD engines cut the work itself with a real-space
 cutoff: each atom interacts with its ≤K neighbors inside ``cutoff``.
-This module is that path, TPU-first:
+This module is that path, shaped for XLA:
 
 - static shapes throughout: the neighbor list is a fixed ``(B, N, K)``
   index array + validity mask, so one compiled program serves every
@@ -149,7 +149,7 @@ def cell_neighbor_list(
     production-MD structure (the reference has no large-system path at
     all; its ``SparseSAKELayer`` is vestigial — ``sake/layers.py``).
 
-    TPU-first shape discipline: ``box`` must be static (a Python
+    Shape discipline: ``box`` must be static (a Python
     float/tuple, not a traced array) because the grid dimensions
     ``floor(L/cutoff)`` are shape-determining; one compiled program then
     serves every rebuild of a trajectory. Binning is sort-based (no

@@ -49,12 +49,6 @@ class ANIConfig:
     data_dir: Optional[str] = None
     data_parallel: bool = False
     seed: int = 2666
-    # Pallas train-kernel backbone (kernels/resid_ef.make_hidden_fn): one
-    # kernel compile per bucket edge (bounded by max_buckets), masked,
-    # first-order. Single-device path only.
-    use_kernel_backbone: bool = False
-    kernel_batch_tile: int = 4
-    kernel_interpret: bool = False
 
     def __post_init__(self):
         # default schedule: message-passing-only early layers, updates last
@@ -133,37 +127,10 @@ def run(cfg: ANIConfig, logger: Optional[MetricLogger] = None):
     )
     tx = make_optimizer(cfg.learning_rate, zero_nans=True, if_finite_patience=None)
 
-    if cfg.use_kernel_backbone:
-        from sake_tpu.kernels import model_params_from_linen
-        from sake_tpu.kernels.resid_ef import make_hidden_fn
-
-        hidden = make_hidden_fn(
-            n_heads=cfg.n_heads,
-            update=cfg.update,
-            batch_tile=cfg.kernel_batch_tile,
-            pad_atoms=True,
-            edge_matmul_dtype=None if cfg.kernel_interpret else jnp.bfloat16,
-            resid_dtype=jnp.float32 if cfg.kernel_interpret else jnp.bfloat16,
-            interpret=cfg.kernel_interpret,
-        )
-        params = model_params_from_linen(params["params"]["backbone"])
-
-        def forward(p, species, x, edge_mask, node_mask):
-            h_fin = hidden(p, species, x, edge_mask)
-            b, n, f = h_fin.shape
-            z = jax.nn.silu(h_fin.reshape(b * n, f) @ p.w_out0 + p.b_out0)
-            out = (z @ p.w_out1 + p.b_out1).reshape(b, n, -1)
-            return (out[..., 0] * node_mask).sum(-1, keepdims=True)
-
-    else:
-
-        def forward(p, species, x, edge_mask, node_mask):
-            return model.apply(p, species, x, edge_mask, node_mask)
-
     state = TrainState.create(apply_fn=model.apply, params=params, tx=tx)
 
     def loss_fn(params, batch):
-        pred = forward(
+        pred = model.apply(
             params, batch["species"], batch["x"], batch["edge_mask"], batch["node_mask"]
         )[..., 0]
         target = (batch["e"] - e_mean) / e_std
@@ -216,25 +183,11 @@ def run(cfg: ANIConfig, logger: Optional[MetricLogger] = None):
 
     # eval over test buckets
     params_eval = jax.device_get(state.params)
-    infer = jax.jit(forward)
+    infer = jax.jit(model.apply)
     preds, targets = [], []
     for edge, bucket in ds_te.buckets.items():
         b = _prep_batch(bucket, n_classes)
         nb = len(b["x"])
-        if cfg.use_kernel_backbone and nb % cfg.kernel_batch_tile:
-            # pad the eval batch with duplicate copies of row 0 (full
-            # rows, row-0 masks and all) up to a batch-tile multiple;
-            # correctness comes from dropping the pads' predictions via
-            # the [:nb] slice below, not from masking
-            n_pad = cfg.kernel_batch_tile - nb % cfg.kernel_batch_tile
-            b = jax.tree.map(
-                lambda a: jnp.concatenate(
-                    [jnp.asarray(a)]
-                    + [jnp.asarray(a[:1])] * n_pad,
-                    axis=0,
-                ),
-                b,
-            )
         p = infer(params_eval, b["species"], b["x"], b["edge_mask"], b["node_mask"])
         preds.append(np.asarray(p[..., 0])[:nb] * e_std + e_mean)
         targets.append(np.asarray(b["e"])[:nb])

@@ -40,14 +40,6 @@ class ForecastConfig:
     n_samples: int = 600
     data_dir: Optional[str] = None
     seed: int = 2666
-    # Pallas train-kernel backbone: the position-forecasting loss seeds
-    # its gradient through the x channel, so the kernel path is
-    # make_hidden_fn(want_x=True) — residual-streaming forward returning
-    # (h_fin, x_out) with velocity input, hand-written backward with
-    # in-kernel parameter gradients.
-    use_kernels: bool = False
-    kernel_batch_tile: int = 4
-    kernel_interpret: bool = False  # CPU-backend testing
 
 
 def run(cfg: ForecastConfig, logger: Optional[MetricLogger] = None):
@@ -75,39 +67,11 @@ def run(cfg: ForecastConfig, logger: Optional[MetricLogger] = None):
     )
     tx = make_optimizer(cfg.learning_rate)
 
-    if cfg.use_kernels:
-        from sake_tpu.kernels import model_params_from_linen
-        from sake_tpu.kernels.resid_ef import make_hidden_fn
+    def predict(p, h_, x0_, v0_):
+        _, x_hat, _ = model.apply(p, h_, x0_, v0_)
+        return x_hat
 
-        hx = make_hidden_fn(
-            n_heads=cfg.n_heads,
-            update=True,
-            batch_tile=cfg.kernel_batch_tile,
-            pad_atoms=True,
-            want_x=True,
-            edge_matmul_dtype=(
-                None if cfg.kernel_interpret else jnp.bfloat16
-            ),
-            resid_dtype=(
-                jnp.float32 if cfg.kernel_interpret else jnp.bfloat16
-            ),
-            interpret=cfg.kernel_interpret,
-        )
-        kp0 = model_params_from_linen(params)
-
-        def predict(p, h_, x0_, v0_):
-            _, x_hat = hx(p, h_, x0_, v0_, None)
-            return x_hat
-
-        state = TrainState.create(apply_fn=predict, params=kp0, tx=tx)
-    else:
-
-        def predict(p, h_, x0_, v0_):
-            _, x_hat, _ = model.apply(p, h_, x0_, v0_)
-            return x_hat
-
-        state = TrainState.create(apply_fn=model.apply, params=params,
-                                  tx=tx)
+    state = TrainState.create(apply_fn=model.apply, params=params, tx=tx)
 
     def step_fn(state, batch):
         def loss_fn(params):

@@ -17,8 +17,7 @@ import jax
 import jax.numpy as jnp
 
 from sake_tpu.data.iso17 import load_iso17
-from sake_tpu.tasks.md17 import make_energy_force_fn, make_step_fn
-from sake_tpu.models import SAKEModel
+from sake_tpu.tasks.md17 import init_params, make_energy_force_fn, make_step_fn
 from sake_tpu.train import TrainState, make_optimizer, scan_epochs, warmup_cosine_schedule
 from sake_tpu.train.metrics import MEV_PER_EV, MetricLogger, bootstrap_mae
 
@@ -48,22 +47,13 @@ def run(cfg: ISO17Config, logger: Optional[MetricLogger] = None):
     e_mean, e_std = float(e_tr.mean()), float(e_tr.std() + 1e-12)
     species = jax.nn.one_hot(tr.z, tr.z.max())
 
-    model = SAKEModel(
-        hidden_features=cfg.hidden_features,
-        out_features=1,
-        depth=cfg.depth,
-        n_heads=cfg.n_heads,
-    )
-    params = jax.jit(model.init)(
-        jax.random.PRNGKey(cfg.seed),
-        jnp.broadcast_to(species, (x_tr.shape[1], species.shape[-1])),
-        jnp.asarray(x_tr[0]),
-    )
     total_steps = (cfg.n_train // cfg.batch_size) * cfg.n_epochs
     tx = make_optimizer(warmup_cosine_schedule(cfg.learning_rate, total_steps))
-    state = TrainState.create(apply_fn=model.apply, params=params, tx=tx)
+    ef_fn = make_energy_force_fn(cfg.n_heads, species, e_mean, e_std)
+    state = TrainState.create(
+        apply_fn=ef_fn, params=init_params(cfg, species.shape[-1]), tx=tx
+    )
 
-    ef_fn = make_energy_force_fn(model, species, e_mean, e_std)
     step_fn = make_step_fn(ef_fn, cfg.energy_loss_weight)
     data = {"x": jnp.asarray(x_tr), "e": jnp.asarray(e_tr), "f": jnp.asarray(f_tr)}
 

@@ -6,10 +6,13 @@ of node outputs, forces by differentiating the energy w.r.t. positions
 (``F = -dE/dx``, ``run.py:54-58``), loss = F-MAE + 1e-3 * E-MAE, scanned
 on-device epochs, periodic checkpointing, bootstrap-MAE eval in kcal/mol.
 
-TPU-native differences:
-- energy and forces come from ONE ``value_and_grad`` pass (the reference
-  ran separate jitted E and F evaluations inside the loss, recomputing the
-  forward a third time for the loss gradient);
+Differences from the reference harness:
+- the model is the functional ``ModelParams`` pytree
+  (``kernels.functional``), so the task needs neither flax nor orbax
+  unless ``checkpoint_dir`` is set;
+- energy and forces come from ONE forward+backward pass
+  (``energy_and_forces_fn``; the reference ran separate jitted E and F
+  evaluations inside the loss);
 - epochs are ``lax.scan``-fused blocks with a donated state;
 - checkpoints via Orbax (async, preemption-tolerant).
 """
@@ -25,9 +28,8 @@ import jax
 import jax.numpy as jnp
 
 from sake_tpu.data.md17 import load_md17
-from sake_tpu.models import SAKEModel
+from sake_tpu.kernels.functional import energy_and_forces_fn, init_model_params
 from sake_tpu.train import (
-    Checkpointer,
     TrainState,
     make_optimizer,
     scan_epochs,
@@ -53,76 +55,60 @@ class MD17Config:
     checkpoint_dir: Optional[str] = None
     checkpoint_every_blocks: int = 1
     seed: int = 2666
-    # Second-order Pallas kernel path (kernels/train2_ef): the fused E+F
-    # primal runs on the residual-streaming kernels and the force-loss
-    # training gradient on the JVP-augmented kernel pair — measured 2.56x
-    # the lax double-autodiff step (BENCH_TRAIN_MD17.json). Training
-    # state becomes the functional ModelParams pytree.
-    use_kernel_ef: bool = False
-    # VMEM champions per mode (BENCH_TRAIN_MD17.json): fused needs
-    # bt=4/aug_bt=2 (its windows carry the whole depth axis — 196M >
-    # 128M otherwise); shared runs bt=8/aug_bt=4 (abt=8 OOMs the
-    # aug-bwd blocks). Defaults match the shipping aug_mode ("fused").
-    kernel_batch_tile: int = 4
-    aug_batch_tile: int = 2
-    # "fused" (whole training backward — and primal — each in ONE
-    # Pallas program) is the SHIPPING default: throughput champion
-    # (2.98x lax, 6,574/s, BENCH_TRAIN_MD17.json) AND passes all four
-    # 400-epoch convergence gates (ACCURACY_MD17.json: force MAE ratio
-    # 1.000, energy 0.61 vs lax 0.59 kcal/mol). Getting there took two
-    # r5 fixes — the in-kernel readout head runs at HIGHEST matmul
-    # precision (Mosaic's default equals a bf16 cast, which biased the
-    # energy grads), and the E VALUE is read through the same XLA
-    # readout tier the evaluator uses (train/eval tier mismatch left
-    # e_mae at 0.87; see ACCURACY_MD17_FUSED_BUG.json for the original
-    # 2.52 failure). "shared" (2.56x, ACCURACY_MD17_SHARED.json) and
-    # "resid"/"retrace" are fallbacks.
-    aug_mode: str = "fused"
-    kernel_interpret: bool = False  # CPU-backend testing
 
 
-def make_model(cfg: MD17Config) -> SAKEModel:
-    return SAKEModel(
-        hidden_features=cfg.hidden_features,
-        out_features=1,
-        depth=cfg.depth,
-        n_heads=cfg.n_heads,
+def init_params(cfg, in_features: int):
+    """The task's model: a SAKE energy model with velocity updates in
+    every layer (``scripts/md17/run.py:40-44``)."""
+    return init_model_params(
+        jax.random.PRNGKey(cfg.seed), in_features,
+        hidden_features=cfg.hidden_features, depth=cfg.depth,
+        n_heads=cfg.n_heads, update=True,
     )
 
 
-def make_energy_force_fn(model: SAKEModel, species_onehot, e_mean, e_std):
-    """Fused (E, F) evaluation: one forward + one backward via
-    ``value_and_grad`` (vs the reference's separate E and F jits)."""
-
-    def energy_sum(params, x):
-        h = jnp.broadcast_to(
-            species_onehot, (*x.shape[:-1], species_onehot.shape[-1])
-        )
-        out, _, _ = model.apply(params, h, x)
-        e = out.sum(axis=(-2, -1)) * e_std + e_mean
-        return e.sum(), e
+def make_energy_force_fn(n_heads: int, species_onehot, e_mean, e_std):
+    """``(params, x (B, N, 3)) -> (E (B, 1), F (B, N, 3))`` with the
+    energy de-standardized as ``E = std * sum_i out_i + mean`` (so
+    ``F = std * f_raw``). Differentiable in ``params`` for force-loss
+    training (second order)."""
 
     def energy_and_forces(params, x):
-        (_, e), neg_f = jax.value_and_grad(energy_sum, argnums=1, has_aux=True)(
-            params, x
-        )
-        return e[..., None], -neg_f
+        h = jnp.broadcast_to(
+            species_onehot, (*x.shape[:-1], species_onehot.shape[-1])
+        ).astype(x.dtype)
+        e, f = energy_and_forces_fn(params, h, x, n_heads=n_heads)
+        return (e * e_std + e_mean)[..., None], f * e_std
 
     return energy_and_forces
 
 
-def make_step_fn(ef_fn, energy_loss_weight):
+def make_loss_fn(ef_fn, energy_loss_weight):
+    """Force-matching loss ``F-MAE + w * E-MAE`` (``run.py:60-70``); its
+    parameter gradient is second order (through ``F = -dE/dx``)."""
+
     def loss_fn(params, batch):
         e_pred, f_pred = ef_fn(params, batch["x"])
         e_loss = jnp.abs(e_pred - batch["e"]).mean()
         f_loss = jnp.abs(f_pred - batch["f"]).mean()
         return f_loss + energy_loss_weight * e_loss
 
+    return loss_fn
+
+
+def make_step_fn(ef_fn, energy_loss_weight):
+    loss_fn = make_loss_fn(ef_fn, energy_loss_weight)
+
     def step(state, batch):
         loss, grads = jax.value_and_grad(loss_fn)(state.params, batch)
         return state.apply_gradients(grads), loss
 
     return step
+
+
+def _optimizer(cfg: MD17Config):
+    total_steps = (cfg.n_train // cfg.batch_size) * cfg.n_epochs
+    return make_optimizer(warmup_cosine_schedule(cfg.learning_rate, total_steps))
 
 
 def run(cfg: MD17Config, logger: Optional[MetricLogger] = None):
@@ -137,75 +123,13 @@ def run(cfg: MD17Config, logger: Optional[MetricLogger] = None):
     e_mean, e_std = float(e_tr.mean()), float(e_tr.std())
     species = jax.nn.one_hot(data.z, data.z.max())
 
-    model = make_model(cfg)
-    params = jax.jit(model.init)(
-        jax.random.PRNGKey(cfg.seed),
-        jnp.broadcast_to(species, (x_tr.shape[1], species.shape[-1])),
-        jnp.asarray(x_tr[0]),
+    ef_fn = make_energy_force_fn(cfg.n_heads, species, e_mean, e_std)
+    ef_eval = jax.jit(ef_fn)
+    state = TrainState.create(
+        apply_fn=ef_fn,
+        params=init_params(cfg, species.shape[-1]),
+        tx=_optimizer(cfg),
     )
-    total_steps = (n_tr // cfg.batch_size) * cfg.n_epochs
-    tx = make_optimizer(warmup_cosine_schedule(cfg.learning_rate, total_steps))
-    state = TrainState.create(apply_fn=model.apply, params=params, tx=tx)
-
-    if cfg.use_kernel_ef:
-        from sake_tpu.kernels import model_params_from_linen
-        from sake_tpu.kernels.train2_ef import make_ef_train2
-
-        bt = min(cfg.kernel_batch_tile, cfg.batch_size)
-        abt = min(cfg.aug_batch_tile, cfg.batch_size)
-        if cfg.batch_size % bt or cfg.batch_size % abt:
-            raise ValueError("batch_size must be divisible by kernel tiles")
-        ef_raw = make_ef_train2(
-            n_heads=cfg.n_heads,
-            update=True,
-            batch_tile=bt,
-            aug_batch_tile=abt,
-            edge_matmul_dtype=None if cfg.kernel_interpret else jnp.bfloat16,
-            resid_dtype=(
-                jnp.float32 if cfg.kernel_interpret else jnp.bfloat16
-            ),
-            pad_atoms=True,
-            aug_mode=cfg.aug_mode,
-            interpret=cfg.kernel_interpret,
-        )
-        n_atoms = x_tr.shape[1]
-
-        def ef_fn(kp, x):
-            h = jnp.broadcast_to(
-                species, (x.shape[0], n_atoms, species.shape[-1])
-            ).astype(jnp.float32)
-            e, f = ef_raw(kp, h, x)
-            # coloring: E = raw*std + mean => F = -dE/dx = std * f_raw
-            return (e * e_std + e_mean)[..., None], f * e_std
-
-        # EVAL runs the lax f32 functional oracle on the kernel params —
-        # NOT a kernel. TRAINING stays on the bf16-tier kernels, but the
-        # low-precision matmul tier adds ~0.5-1.2 kcal/mol of ENERGY MAE
-        # (the 21-atom energy sum accumulates rounding noise the force
-        # components don't), which once made kernel-path runs report 3x
-        # the lax energy MAE while the trained parameters were actually
-        # equivalent (cross-eval diagnosis, 2026-08-19: kernel-params +
-        # f32-eval 0.620 vs lax 0.594 kcal/mol). Mosaic's DEFAULT f32
-        # matmul is itself bf16-tier, and Precision.HIGHEST in one_ef
-        # VMEM-OOMs at eval shapes (131M > 128M: 6-pass register spills)
-        # — the lax path is the canonical f32 tier, costs ~50 ms once
-        # per run at eval size, and needs no batch-tile padding.
-        # Reference eval shape: scripts/md17/eval.py:78-85.
-        from sake_tpu.kernels.functional import energy_and_forces_fn
-
-        @jax.jit
-        def ef_eval(kp, x):
-            h = jnp.broadcast_to(
-                species, (x.shape[0], n_atoms, species.shape[-1])
-            ).astype(jnp.float32)
-            e, f = energy_and_forces_fn(kp, h, x, n_heads=cfg.n_heads)
-            return (e * e_std + e_mean)[..., None], f * e_std
-
-        params = model_params_from_linen(params["params"])
-        state = TrainState.create(apply_fn=model.apply, params=params, tx=tx)
-    else:
-        ef_fn = make_energy_force_fn(model, species, e_mean, e_std)
-        ef_eval = jax.jit(ef_fn)
     step_fn = make_step_fn(ef_fn, cfg.energy_loss_weight)
     train_data = {
         "x": jnp.asarray(x_tr),
@@ -223,11 +147,13 @@ def run(cfg: MD17Config, logger: Optional[MetricLogger] = None):
             n_epochs=cfg.epochs_per_block,
         )
 
-    ckpt = (
-        Checkpointer(cfg.checkpoint_dir, keep_every_n=cfg.checkpoint_every_blocks)
-        if cfg.checkpoint_dir
-        else None
-    )
+    ckpt = None
+    if cfg.checkpoint_dir:
+        from sake_tpu.train.checkpoint import Checkpointer
+
+        ckpt = Checkpointer(
+            cfg.checkpoint_dir, keep_every_n=cfg.checkpoint_every_blocks
+        )
     # kill-and-resume: restore the full train state from the latest
     # checkpoint (the reference's restart pattern, ani_mpi/run_mpi.py:110)
     if ckpt and ckpt.latest_step() is not None:
@@ -280,32 +206,30 @@ def run(cfg: MD17Config, logger: Optional[MetricLogger] = None):
     return state, results
 
 
-def select_best_checkpoint(cfg: MD17Config, params_like=None):
+def select_best_checkpoint(cfg: MD17Config):
     """Checkpoint-series model selection (the md17_traj pattern,
     reference ``scripts/md17_traj/eval.py:60-78``): evaluate every saved
     checkpoint's validation force-MAE and return (best_step, best_params,
     per_step_mae)."""
+    from sake_tpu.train.checkpoint import Checkpointer
+
     assert cfg.checkpoint_dir, "needs a checkpoint_dir"
     data = load_md17(cfg.molecule, cfg.data_dir, n_samples=cfg.n_train + 2 * cfg.n_valid)
     x_vl = jnp.asarray(data.x[cfg.n_train : cfg.n_train + cfg.n_valid])
     f_vl = jnp.asarray(data.f[cfg.n_train : cfg.n_train + cfg.n_valid])
     e_tr = data.e[: cfg.n_train]
     species = jax.nn.one_hot(data.z, data.z.max())
-    model = make_model(cfg)
-    if params_like is None:
-        params_like = jax.jit(model.init)(
-            jax.random.PRNGKey(cfg.seed),
-            jnp.broadcast_to(species, (data.x.shape[1], species.shape[-1])),
-            jnp.asarray(data.x[0]),
-        )
-        params_like = jax.device_get(params_like)
     ef_fn = jax.jit(
-        make_energy_force_fn(model, species, float(e_tr.mean()), float(e_tr.std()))
+        make_energy_force_fn(
+            cfg.n_heads, species, float(e_tr.mean()), float(e_tr.std())
+        )
     )
-    total_steps = (cfg.n_train // cfg.batch_size) * cfg.n_epochs
-    tx = make_optimizer(warmup_cosine_schedule(cfg.learning_rate, total_steps))
     state_like = jax.device_get(
-        TrainState.create(apply_fn=model.apply, params=params_like, tx=tx)
+        TrainState.create(
+            apply_fn=None,
+            params=init_params(cfg, species.shape[-1]),
+            tx=_optimizer(cfg),
+        )
     )
     template = {
         "step": state_like.step,

@@ -4,7 +4,7 @@ Capability match for ``scripts/nbody/run.py``: predict terminal positions
 x(t=40) from x, v at t=30 with a velocity-updating SAKE model (the model's
 depth acts as learned integrator steps); terminal-position MSE loss.
 
-TPU-native improvements over the reference harness:
+Improvements over the reference harness:
 - whole epochs run on-device as one XLA program (``scan_epochs`` with a
   donated train state) instead of a host loop around per-batch jits;
 - dataclass config instead of argparse + shell sweeps;

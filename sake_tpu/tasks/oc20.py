@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from functools import partial
 from typing import List, Optional, Union
 
 import jax
@@ -43,10 +42,6 @@ class OC20Config:
     max_buckets: int = 5
     data_dir: Optional[str] = None
     seed: int = 2666
-    # Pallas train-kernel backbone (see tasks/ani.py)
-    use_kernel_backbone: bool = False
-    kernel_batch_tile: int = 4
-    kernel_interpret: bool = False
     # Large-system execution (bigsys): blocked online-softmax layers on a
     # single device; on a multi-device mesh, atom sharding with automatic
     # gather-vs-ring sender exchange (bigsys.sharded_model_forward,
@@ -58,15 +53,6 @@ class OC20Config:
     # checkpoint the per-block scans so the TRAINING backward stays
     # O(N*block) memory like the forward (bigsys.blocked_layer_forward)
     bigsys_remat: bool = True
-    # Cutoff-sparse Pallas TRAINING path (round 5): the O(N·K) edge
-    # chain AND its parameter gradients run in the sparse edge kernels
-    # (kernels/sparse_ef, param_grads=True) — the large-N energy
-    # training the dense train kernels can't reach. The neighbor list
-    # is built on-device per batch from the cutoff geometry.
-    use_sparse_kernel: bool = False
-    sparse_cutoff: float = 5.0
-    sparse_max_neighbors: int = 32
-    sparse_block_rows: int = 32
 
 
 def run(cfg: OC20Config, logger: Optional[MetricLogger] = None):
@@ -102,53 +88,7 @@ def run(cfg: OC20Config, logger: Optional[MetricLogger] = None):
     )
     tx = make_optimizer(cfg.learning_rate, zero_nans=True, if_finite_patience=None)
 
-    if cfg.use_kernel_backbone:
-        from sake_tpu.kernels import model_params_from_linen
-        from sake_tpu.kernels.resid_ef import make_hidden_fn
-
-        hidden = make_hidden_fn(
-            n_heads=cfg.n_heads,
-            update=cfg.update,
-            batch_tile=cfg.kernel_batch_tile,
-            pad_atoms=True,
-            edge_matmul_dtype=None if cfg.kernel_interpret else jnp.bfloat16,
-            resid_dtype=jnp.float32 if cfg.kernel_interpret else jnp.bfloat16,
-            interpret=cfg.kernel_interpret,
-        )
-        params = model_params_from_linen(params["params"]["backbone"])
-
-        def forward(p, species, x, edge_mask, node_mask):
-            h_fin = hidden(p, species, x, edge_mask)
-            b, n, f = h_fin.shape
-            z = jax.nn.silu(h_fin.reshape(b * n, f) @ p.w_out0 + p.b_out0)
-            out = (z @ p.w_out1 + p.b_out1).reshape(b, n, -1)
-            return (out[..., 0] * node_mask).sum(-1, keepdims=True)
-
-    elif cfg.use_sparse_kernel:
-        from sake_tpu.kernels import model_params_from_linen
-        from sake_tpu.kernels.sparse_ef import sparse_kernel_model_forward
-        from sake_tpu.sparse import neighbor_list
-
-        params = model_params_from_linen(params["params"]["backbone"])
-
-        def forward(p, species, x, edge_mask, node_mask):
-            idx, m = neighbor_list(
-                x, cfg.sparse_cutoff, cfg.sparse_max_neighbors,
-                node_mask=node_mask,
-            )
-            out, _, _ = sparse_kernel_model_forward(
-                p, species, x, idx, m,
-                n_heads=cfg.n_heads, update=cfg.update,
-                block_rows=cfg.sparse_block_rows,
-                edge_matmul_dtype=(
-                    None if cfg.kernel_interpret else jnp.bfloat16
-                ),
-                interpret=cfg.kernel_interpret,
-                param_grads=True,
-            )
-            return (out[..., 0] * node_mask).sum(-1, keepdims=True)
-
-    elif cfg.use_bigsys:
+    if cfg.use_bigsys:
         from sake_tpu.bigsys import blocked_model_forward, sharded_model_forward
         from sake_tpu.kernels import model_params_from_linen
         from sake_tpu.parallel import make_mesh
@@ -197,15 +137,7 @@ def run(cfg: OC20Config, logger: Optional[MetricLogger] = None):
 
     # scanned per-bucket groups + prefetch: <= max_buckets dispatches/epoch
     # (see tasks/ani.py; replaces the reference's per-batch host loop).
-    # The sparse-kernel training graph needs the raised scoped-vmem
-    # budget (see kernels/sparse_ef.SPARSE_TRAIN_COMPILER_OPTIONS).
-    opts = None
-    if cfg.use_sparse_kernel and not cfg.kernel_interpret:
-        from sake_tpu.kernels.sparse_ef import SPARSE_TRAIN_COMPILER_OPTIONS
-
-        opts = SPARSE_TRAIN_COMPILER_OPTIONS
-
-    @partial(jax.jit, compiler_options=opts)
+    @jax.jit
     def scan_group(state, batches):
         return jax.lax.scan(_step, state, batches)
 
@@ -233,14 +165,6 @@ def run(cfg: OC20Config, logger: Optional[MetricLogger] = None):
     for edge, bucket in ds_te.buckets.items():
         b = _prep_batch(bucket, n_classes)
         nb = len(b["x"])
-        if cfg.use_kernel_backbone and nb % cfg.kernel_batch_tile:
-            n_pad = cfg.kernel_batch_tile - nb % cfg.kernel_batch_tile
-            b = jax.tree.map(
-                lambda a: jnp.concatenate(
-                    [jnp.asarray(a)] + [jnp.asarray(a[:1])] * n_pad, axis=0
-                ),
-                b,
-            )
         p = infer(state.params, b["species"], b["x"], b["edge_mask"], b["node_mask"])
         preds.append(np.asarray(p[..., 0])[:nb] * e_std + e_mean)
         targets.append(np.asarray(b["e"])[:nb])

@@ -64,14 +64,6 @@ class QM9Config:
     data_parallel: bool = True
     max_notfinite: int = 10
     seed: int = 2666
-    # Pallas train-kernel backbone (first-order, masked): the residual-
-    # streaming forward + hand-written backward with in-kernel parameter
-    # gradients (kernels/resid_ef.make_hidden_fn). Measured 2.4x the lax
-    # epoch on v5e (bench_train.py). Composes with data_parallel (the
-    # custom-VJP kernel runs inside the shard_map'd scanned epoch).
-    use_kernel_backbone: bool = False
-    kernel_batch_tile: int = 4
-    kernel_interpret: bool = False  # CPU-backend testing
 
 
 class QM9Model(nn.Module):
@@ -135,46 +127,10 @@ def run(cfg: QM9Config, logger: Optional[MetricLogger] = None):
         weight_decay=cfg.weight_decay,
         if_finite_patience=5,
     )
-    if cfg.use_kernel_backbone:
-        from sake_tpu.kernels import model_params_from_linen
-        from sake_tpu.kernels.resid_ef import make_hidden_fn
-
-        hidden = make_hidden_fn(
-            n_heads=cfg.n_heads,
-            update=cfg.update,
-            batch_tile=cfg.kernel_batch_tile,
-            pad_atoms=True,
-            edge_matmul_dtype=None if cfg.kernel_interpret else jnp.bfloat16,
-            resid_dtype=jnp.float32 if cfg.kernel_interpret else jnp.bfloat16,
-            interpret=cfg.kernel_interpret,
-        )
-        head = GraphPropertyHead(
-            out_features=1,
-            hidden_features=cfg.hidden_features,
-            use_mlp=cfg.use_mlp_head,
-        )
-        params = {
-            "kp": model_params_from_linen(params["params"]["backbone"]),
-            "head": {"params": params["params"]["head"]},
-        }
-
-        def forward(p, species, x, edge_mask, node_mask):
-            kp = p["kp"]
-            h_fin = hidden(kp, species, x, edge_mask)
-            B, N, F = h_fin.shape
-            z = jax.nn.silu(h_fin.reshape(B * N, F) @ kp.w_out0 + kp.b_out0)
-            y = (z @ kp.w_out1 + kp.b_out1).reshape(B, N, -1)
-            return head.apply(p["head"], y, mask=node_mask)
-
-    else:
-
-        def forward(p, species, x, edge_mask, node_mask):
-            return model.apply(p, species, x, edge_mask, node_mask)
-
     state = TrainState.create(apply_fn=model.apply, params=params, tx=tx)
 
     def loss_fn(params, batch):
-        pred = forward(
+        pred = model.apply(
             params, batch["species"], batch["x"], batch["edge_mask"], batch["node_mask"]
         )
         return ((pred - batch["y"]) ** 2).mean()
@@ -224,18 +180,7 @@ def run(cfg: QM9Config, logger: Optional[MetricLogger] = None):
     t0 = time.time()
 
     n_dev = len(jax.devices())
-    if cfg.use_kernel_backbone:
-        per_dev = cfg.batch_size // (
-            n_dev if cfg.data_parallel and n_dev > 1 else 1
-        )
-        if per_dev % cfg.kernel_batch_tile:
-            raise ValueError(
-                "per-device batch must be divisible by kernel_batch_tile"
-            )
     if cfg.data_parallel and n_dev > 1:
-        # kernel backbone + DP compose (custom-VJP under shard_map is
-        # bit-exact vs single device — tests/test_parallel.py): the same
-        # loss_fn runs inside the sharded scanned epoch either way.
         mesh = make_mesh()
         epoch_fn = jax.jit(make_dp_epoch(loss_fn, mesh), donate_argnums=0)
         state = replicate_state(state, mesh)
@@ -280,7 +225,7 @@ def run(cfg: QM9Config, logger: Optional[MetricLogger] = None):
 
     # eval (single device is fine; padded batches are static-shape)
     params_eval = jax.device_get(state.params)
-    infer = jax.jit(forward)
+    infer = jax.jit(model.apply)
 
     def predict(split):
         # FULL split: the ragged tail batch is padded with duplicate rows
@@ -288,8 +233,6 @@ def run(cfg: QM9Config, logger: Optional[MetricLogger] = None):
         # off — the reference evaluates every sample (qm9_full/eval.py).
         preds = []
         bs = min(max(cfg.batch_size, 64), len(split["x"]))
-        if cfg.use_kernel_backbone:
-            bs -= bs % cfg.kernel_batch_tile
         n = len(split["x"])
         for s in range(0, n, bs):
             sl = jax.tree.map(lambda a: a[s : s + bs], split)

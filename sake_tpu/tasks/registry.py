@@ -42,49 +42,19 @@ _REGISTRY: Dict[str, Callable] = {
     # energy+force
     "md17": _lazy("md17", "run", "MD17Config"),
     "md17_traj": _lazy("md17", "run", "MD17Config", checkpoint_every_blocks=1),
-    # flagship training fully on Pallas kernels: second-order force-loss
-    # gradients via the shared-residual aug scheme (2.56x lax; BENCH_TRAIN_MD17)
-    "md17_kernel": _lazy("md17", "run", "MD17Config", use_kernel_ef=True),
     "iso17": _lazy("iso17", "run", "ISO17Config"),
     # property regression
     "qm9": _lazy("qm9", "run", "QM9Config"),
-    "qm9_tpu": _lazy("qm9", "run", "QM9Config", data_parallel=True),
-    # Pallas train-kernel backbone (2.4x the lax epoch on v5e; see
-    # bench_train.py / BENCH_TRAIN.json)
-    "qm9_kernel": _lazy(
-        "qm9", "run", "QM9Config",
-        data_parallel=False, use_kernel_backbone=True,
-    ),
-    # + size-bucketed batches (ANI-style bucketing applied to QM9: ~2x
-    # less edge-grid padding waste; see bench_train.py kernel_bucketed)
-    "qm9_kernel_bucketed": _lazy(
-        "qm9", "run", "QM9Config",
-        data_parallel=False, use_kernel_backbone=True,
-        bucket_pad_multiple=8,
-    ),
+    # shard_map data parallelism over every visible device
+    "qm9_dp": _lazy("qm9", "run", "QM9Config", data_parallel=True),
     # large heterogeneous
     "ani": _lazy("ani", "run", "ANIConfig"),
     "oc20": _lazy("oc20", "run", "OC20Config"),
-    # round 5: energy training with the sparse-edge-kernel backbone
-    # (in-kernel parameter gradients; large-N capability)
-    "oc20_sparse_kernel": _lazy(
-        "oc20", "run", "OC20Config", use_sparse_kernel=True
-    ),
     # large-system MD on the cutoff-sparse O(N*K) path (capability the
     # reference's broken SparseSAKELayer never delivered)
     "sparse_md": _lazy("sparse_md", "run", "SparseMDConfig"),
-    # same workload on the Pallas sparse edge kernels (2.4x the lax path
-    # on-chip; kernels/sparse_ef.py)
-    # round 5: force-matching (second-order) training at cutoff-sparse
-    # scale — lax double autodiff vs the two-level custom_vjp edge
-    # kernels (tasks/sparse_train.py)
+    # force-matching (second-order) training at cutoff-sparse scale
     "sparse_train": _lazy("sparse_train", "run", "SparseTrainConfig"),
-    "sparse_train_kernel": _lazy(
-        "sparse_train", "run", "SparseTrainConfig", use_kernel=True
-    ),
-    "sparse_md_kernel": _lazy(
-        "sparse_md", "run", "SparseMDConfig", use_kernel=True
-    ),
     # flows
     "dw4": _lazy("flows", "run_cnf", "CNFConfig"),
     "dw4_aug": _lazy("flows", "run_augmented", "AugmentedFlowConfig", system="dw4"),
@@ -140,6 +110,8 @@ def main(argv=None):
     registry."""
     import sys
 
+    from sake_tpu.compile_cache import enable_compile_cache
+
     argv = sys.argv[1:] if argv is None else argv
     if not argv or argv[0] in ("-h", "--help"):
         print(
@@ -150,6 +122,7 @@ def main(argv=None):
         for n in list_workloads():
             print(f"  {n}")
         return
+    enable_compile_cache()
     if argv[0] == "sweep":
         from sake_tpu.tasks.sweep import main as sweep_main
 

@@ -8,10 +8,12 @@ SAKE force field over thousands of atoms with O(N·K) work
 with periodic neighbor-list rebuilds (``md.neighborlist_verlet_rollout``
 — one scanned XLA program per rollout block).
 
-Force-field parameters come from a training checkpoint when
-``checkpoint_dir`` is set (the MD17/OC20 tasks save compatible trees);
-otherwise a fresh init drives a synthetic amorphous box — the throughput
-and stability numbers are force-field-independent.
+The force field is the functional ``ModelParams`` model, freshly
+initialized from ``seed`` (the throughput and stability numbers are
+force-field-independent), or restored from ``checkpoint_dir``: a linen
+``SAKEModel`` parameter tree saved with ``train.Checkpointer``, converted
+by ``kernels.model_params_from_linen``. Without a checkpoint the task
+needs neither flax nor orbax.
 """
 
 from __future__ import annotations
@@ -24,9 +26,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from sake_tpu.kernels import model_params_from_linen
+from sake_tpu.kernels.functional import init_model_params
 from sake_tpu.md import neighborlist_verlet_rollout
-from sake_tpu.models import SAKEModel
 from sake_tpu.sparse import make_sparse_energy_forces
 from sake_tpu.train.metrics import MetricLogger
 
@@ -44,7 +45,7 @@ class SparseMDConfig:
     hidden_features: int = 64
     depth: int = 6
     n_heads: int = 4
-    checkpoint_dir: Optional[str] = None  # restore trained params
+    checkpoint_dir: Optional[str] = None  # restore linen-trained params
     # neighborlist
     cutoff: float = 5.0
     max_neighbors: int = 64
@@ -57,15 +58,12 @@ class SparseMDConfig:
     dt: float = 1e-3
     n_steps: int = 100
     remat: bool = True
-    # Pallas edge-kernel force field (kernels/sparse_ef.py): ~2.4x the
-    # lax sparse path on-chip; lax remains the exact-tier fallback
-    use_kernel: bool = False
-    kernel_block_rows: int = 32
-    kernel_interpret: bool = False  # CI: run the kernels interpreted
     seed: int = 0
 
 
-def _synthesize_box(cfg: SparseMDConfig):
+def synthesize_box(cfg: SparseMDConfig):
+    """Seeded amorphous box: ``(h (1, N, n_species), x (1, N, 3),
+    v0 (1, N, 3), box (3,) or None)``."""
     rng = np.random.RandomState(cfg.seed)
     side = (cfg.n_atoms / cfg.density) ** (1.0 / 3.0)
     box = jnp.asarray([side] * 3, jnp.float32) if cfg.periodic else None
@@ -80,42 +78,33 @@ def _synthesize_box(cfg: SparseMDConfig):
     return h, x, v0, box
 
 
+def init_params(cfg: SparseMDConfig):
+    """Seeded cutoff force field (no velocity updates: the graph is fixed
+    through each force evaluation)."""
+    return init_model_params(
+        jax.random.PRNGKey(cfg.seed), cfg.n_species,
+        hidden_features=cfg.hidden_features, depth=cfg.depth,
+        n_heads=cfg.n_heads, update=False,
+    )
+
+
 def run(cfg: SparseMDConfig, logger: Optional[MetricLogger] = None):
     logger = logger or MetricLogger()
-    h, x, v0, box = _synthesize_box(cfg)
+    h, x, v0, box = synthesize_box(cfg)
 
-    model = SAKEModel(
-        hidden_features=cfg.hidden_features,
-        out_features=1,
-        depth=cfg.depth,
-        n_heads=cfg.n_heads,
-        update=False,
-    )
-    params = jax.jit(model.init)(jax.random.PRNGKey(cfg.seed), h[0], x[0])
     if cfg.checkpoint_dir is not None:
+        from sake_tpu.kernels.adapter import model_params_from_linen
         from sake_tpu.train.checkpoint import Checkpointer
 
-        params = Checkpointer(cfg.checkpoint_dir).restore(params)
-    kp = model_params_from_linen(params)
+        with Checkpointer(cfg.checkpoint_dir) as ckpt:
+            kp = model_params_from_linen(ckpt.restore(None))
+    else:
+        kp = init_params(cfg)
 
     masses = jnp.full((cfg.n_atoms,), cfg.mass, jnp.float32)
-    if cfg.use_kernel:
-        from sake_tpu.kernels.sparse_ef import (
-            make_sparse_kernel_energy_forces,
-        )
-
-        ef = make_sparse_kernel_energy_forces(
-            h, n_heads=cfg.n_heads, update=False, box=box,
-            block_rows=cfg.kernel_block_rows,
-            edge_matmul_dtype=(
-                None if cfg.kernel_interpret else jnp.bfloat16
-            ),
-            interpret=cfg.kernel_interpret,
-        )
-    else:
-        ef = make_sparse_energy_forces(
-            h, n_heads=cfg.n_heads, update=False, remat=cfg.remat, box=box
-        )
+    ef = make_sparse_energy_forces(
+        h, n_heads=cfg.n_heads, update=False, remat=cfg.remat, box=box
+    )
 
     @jax.jit
     def rollout(p, x_, v_):

@@ -9,25 +9,15 @@ match the forces of a teacher force field (here: the same architecture
 at independently initialized parameters; swap in DFT labels by feeding
 your own targets) over an amorphous box.
 
-Two execution paths, selected by ``use_kernel``:
-
-- lax (exact tier): double autodiff through
-  ``sparse.sparse_model_forward(remat=True)``;
-- Pallas kernels: ``kernels.sparse_ef.make_sparse_kernel_force_loss`` —
-  reverse-over-reverse through the two-level custom_vjp edge op (the
-  second-order pullback kernel computes the ∂²E/∂p∂x Hessian terms
-  in-kernel), parity-tested against the lax path
-  (``tests/test_sparse.py::test_sparse_kernel_force_loss_grads_match_lax``).
-
-Energy-only training at this scale lives in ``tasks/oc20.py``
-(``use_sparse_kernel=True``).
+The training gradient is double autodiff through
+``sparse.sparse_model_forward(remat=True)``: the force loss's gradient
+with respect to the parameters, of the position gradient of the energy.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from functools import partial
 from typing import Optional
 
 import jax
@@ -35,8 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 
-from sake_tpu.kernels import model_params_from_linen
-from sake_tpu.models import SAKEModel
+from sake_tpu.kernels.functional import init_model_params
 from sake_tpu.sparse import neighbor_list, sparse_model_forward
 from sake_tpu.train.metrics import MetricLogger
 
@@ -60,11 +49,6 @@ class SparseTrainConfig:
     learning_rate: float = 1e-4
     n_steps: int = 100
     steps_per_block: int = 10  # scanned on device between log lines
-    # execution
-    use_kernel: bool = False
-    block_rows: int = 32
-    bn2: Optional[int] = None
-    kernel_interpret: bool = False
     seed: int = 0
 
 
@@ -78,18 +62,14 @@ def run(cfg: SparseTrainConfig, logger: Optional[MetricLogger] = None):
         cfg.n_species,
     ).astype(jnp.float32)
 
-    model = SAKEModel(
-        hidden_features=cfg.hidden_features, out_features=1,
-        depth=cfg.depth, n_heads=cfg.n_heads, update=False,
-    )
-    h0 = jnp.asarray(rng.randn(8, cfg.n_species), jnp.float32)
-    x0 = jnp.asarray(rng.randn(8, 3), jnp.float32)
-    kp = model_params_from_linen(
-        jax.jit(model.init)(jax.random.PRNGKey(cfg.seed), h0, x0)
-    )
-    teacher = model_params_from_linen(
-        jax.jit(model.init)(jax.random.PRNGKey(cfg.seed + 1), h0, x0)
-    )
+    def init(seed):
+        return init_model_params(
+            jax.random.PRNGKey(seed), cfg.n_species,
+            hidden_features=cfg.hidden_features, depth=cfg.depth,
+            n_heads=cfg.n_heads, update=False,
+        )
+
+    kp, teacher = init(cfg.seed), init(cfg.seed + 1)
 
     idx, m = jax.jit(
         lambda x_: neighbor_list(x_, cfg.cutoff, cfg.max_neighbors)
@@ -111,34 +91,14 @@ def run(cfg: SparseTrainConfig, logger: Optional[MetricLogger] = None):
 
     f_t, e_t = jax.block_until_ready(_labels(teacher, x))
 
-    opts = None
-    if cfg.use_kernel:
-        from sake_tpu.kernels.sparse_ef import (
-            SPARSE_TRAIN_COMPILER_OPTIONS,
-            make_sparse_kernel_force_loss,
+    def loss(p):
+        (_, e_b), neg_f = jax.value_and_grad(
+            _e_sum, argnums=1, has_aux=True
+        )(p, x)
+        return (
+            jnp.abs(-neg_f - f_t).mean()
+            + cfg.energy_coef * jnp.abs(e_b - e_t).mean()
         )
-
-        loss_fn = make_sparse_kernel_force_loss(
-            h, energy_coef=cfg.energy_coef, n_heads=cfg.n_heads,
-            update=False, block_rows=cfg.block_rows, bn2=cfg.bn2,
-            edge_matmul_dtype=None if cfg.kernel_interpret else jnp.bfloat16,
-            interpret=cfg.kernel_interpret,
-        )
-        if not cfg.kernel_interpret:
-            opts = SPARSE_TRAIN_COMPILER_OPTIONS
-
-        def loss(p):
-            return loss_fn(p, x, idx, m, f_t, e_t)
-    else:
-
-        def loss(p):
-            (_, e_b), neg_f = jax.value_and_grad(
-                _e_sum, argnums=1, has_aux=True
-            )(p, x)
-            return (
-                jnp.abs(-neg_f - f_t).mean()
-                + cfg.energy_coef * jnp.abs(e_b - e_t).mean()
-            )
 
     tx = optax.adam(cfg.learning_rate)
 
@@ -148,7 +108,7 @@ def run(cfg: SparseTrainConfig, logger: Optional[MetricLogger] = None):
         upd, opt = tx.update(grads, opt, p)
         return (optax.apply_updates(p, upd), opt), lval
 
-    @partial(jax.jit, **({"compiler_options": opts} if opts else {}))
+    @jax.jit
     def block(p, opt):
         (p, opt), losses = jax.lax.scan(
             _step, (p, opt), None, length=cfg.steps_per_block

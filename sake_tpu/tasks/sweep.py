@@ -16,8 +16,8 @@ Usage::
 
 On a multi-controller cluster the same command runs under
 ``parallel.initialize_distributed`` per cell; on one host the cells run
-sequentially (TPU chips don't time-share well, and XLA compilations are
-cached across cells that share shapes).
+sequentially (accelerators don't time-share well between processes, and
+XLA compilations are cached across cells that share shapes).
 """
 
 from __future__ import annotations

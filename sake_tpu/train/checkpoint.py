@@ -3,7 +3,7 @@
 Replaces the reference's ``flax.training.checkpoints`` usage
 (``scripts/md17/run.py:127-130``, ``ani_mpi/init.py:41``) with Orbax:
 async-capable, multi-host/sharded-array aware, preemption-tolerant —
-the TPU-native choice.
+the multi-host choice.
 
 Capabilities preserved from the reference:
 - periodic save with ``keep_every_n`` for trajectory/model-selection evals

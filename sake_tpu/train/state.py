@@ -1,26 +1,35 @@
 """Train state: parameters + optimizer state + step, as a pytree.
 
 A minimal, framework-owned equivalent of ``flax.training.train_state``
-(which every reference harness used) — owned here so the whole state is a
-plain pytree that ``jit``/``shard_map`` can donate and shard without
-pulling in flax internals.
+(which every reference harness used): a frozen dataclass registered with
+``jax.tree_util``, so the whole state is a plain pytree that
+``jit``/``shard_map`` can donate and shard, with no flax dependency.
+``apply_fn`` and ``tx`` are static (treedef) fields.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable
 
 import jax
+import jax.numpy as jnp
 import optax
-from flax import struct
 
 
-class TrainState(struct.PyTreeNode):
+@jax.tree_util.register_dataclass
+@dataclasses.dataclass(frozen=True)
+class TrainState:
     step: jax.Array
     params: Any
     opt_state: optax.OptState
-    apply_fn: Callable = struct.field(pytree_node=False)
-    tx: optax.GradientTransformation = struct.field(pytree_node=False)
+    apply_fn: Callable = dataclasses.field(metadata=dict(static=True))
+    tx: optax.GradientTransformation = dataclasses.field(
+        metadata=dict(static=True)
+    )
+
+    def replace(self, **changes) -> "TrainState":
+        return dataclasses.replace(self, **changes)
 
     def apply_gradients(self, grads) -> "TrainState":
         updates, new_opt_state = self.tx.update(grads, self.opt_state, self.params)
@@ -31,8 +40,6 @@ class TrainState(struct.PyTreeNode):
 
     @classmethod
     def create(cls, *, apply_fn, params, tx) -> "TrainState":
-        import jax.numpy as jnp
-
         return cls(
             step=jnp.zeros((), jnp.int32),
             params=params,

@@ -71,14 +71,12 @@ def test_md17_npz_roundtrip_and_train(tmp_path):
     np.testing.assert_allclose(data.e, E[perm].astype(np.float32))
 
     # one real training step through the task's E+F machinery
-    from sake_tpu.models import SAKEModel
-    from sake_tpu.tasks.md17 import make_energy_force_fn
+    from sake_tpu.tasks.md17 import MD17Config, init_params, make_energy_force_fn
 
     sp = jax.nn.one_hot(data.z, data.z.max())
-    model = SAKEModel(hidden_features=8, out_features=1, depth=2)
     x0 = jnp.asarray(data.x[:4])
-    params = model.init(jax.random.PRNGKey(0), sp, x0[0])
-    ef = make_energy_force_fn(model, sp, 0.0, 1.0)
+    params = init_params(MD17Config(hidden_features=8, depth=2), sp.shape[-1])
+    ef = make_energy_force_fn(4, sp, 0.0, 1.0)
 
     def loss(p):
         e, f = ef(p, x0)

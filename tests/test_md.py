@@ -48,43 +48,3 @@ def test_learned_integrator_rollout():
     assert bool(jnp.isfinite(xs).all() and jnp.isfinite(vs).all())
     # trajectory actually moves
     assert float(jnp.abs(xs[1] - xs[0]).max()) > 0
-
-
-@pytest.mark.slow
-def test_velocity_verlet_on_kernel_forces():
-    """The Pallas fused E+F kernel plugs into velocity_verlet_rollout as
-    the force field; its trajectory must match the lax-driven one."""
-    import numpy as np
-    from sake_tpu.kernels import model_params_from_linen
-    from sake_tpu.kernels.fori_ef import fori_energy_forces
-    from sake_tpu.md import velocity_verlet_rollout
-    from sake_tpu.models import SAKEModel, energy_and_forces
-
-    rng = np.random.RandomState(0)
-    B, N, F = 4, 5, 3
-    h = jnp.asarray(rng.randn(B, N, F), jnp.float32)
-    x0 = jnp.asarray(rng.randn(B, N, 3), jnp.float32)
-    v0 = jnp.asarray(rng.randn(B, N, 3) * 0.05, jnp.float32)
-    masses = jnp.ones((N,))
-    model = SAKEModel(hidden_features=8, out_features=1, depth=2)
-    params = model.init(jax.random.PRNGKey(0), h[0], x0[0])
-    kp = model_params_from_linen(params)
-
-    def ef_lax(p, x):
-        e, f = energy_and_forces(model.apply, p, h, x)
-        return e, f
-
-    def ef_kernel(p, x):
-        e, f = fori_energy_forces(
-            p, h, x, batch_tile=2, pad_atoms=True, interpret=True
-        )
-        return e.sum(), f
-
-    xs_l, vs_l, _ = velocity_verlet_rollout(
-        ef_lax, params, x0, v0, masses, dt=1e-3, n_steps=4
-    )
-    xs_k, vs_k, _ = velocity_verlet_rollout(
-        ef_kernel, kp, x0, v0, masses, dt=1e-3, n_steps=4
-    )
-    np.testing.assert_allclose(xs_k, xs_l, rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(vs_k, vs_l, rtol=1e-3, atol=1e-4)

@@ -115,53 +115,6 @@ def test_dp_grads_average_not_sum(mesh):
     )
 
 
-@pytest.mark.slow
-def test_dp_step_kernel_backbone(mesh):
-    """The Pallas train path (custom-VJP hidden fn with in-kernel parameter
-    gradients) composes with shard_map data parallelism: the sharded step
-    must reproduce the single-device step exactly."""
-    from sake_tpu.kernels import model_params_from_linen
-    from sake_tpu.kernels.resid_ef import make_hidden_fn
-    from sake_tpu.models import SAKEModel
-
-    rng = np.random.RandomState(5)
-    B, N, F = 16, 5, 4
-    h = jnp.asarray(rng.randn(B, N, F), jnp.float32)
-    x = jnp.asarray(rng.randn(B, N, 3), jnp.float32)
-    y = jnp.asarray(rng.randn(B, 1), jnp.float32)
-    model = SAKEModel(hidden_features=8, out_features=1, depth=2)
-    kp = model_params_from_linen(
-        model.init(jax.random.PRNGKey(0), h[0], x[0])
-    )
-    hidden = make_hidden_fn(batch_tile=2, pad_atoms=True, interpret=True)
-
-    def loss_fn(kp_, batch):
-        h_fin = hidden(kp_, batch["h"], batch["x"], None)
-        b, n, f = h_fin.shape
-        z = jax.nn.silu(h_fin.reshape(b * n, f) @ kp_.w_out0 + kp_.b_out0)
-        e = (z @ kp_.w_out1 + kp_.b_out1).reshape(b, n, -1).sum(axis=(-2, -1))
-        return jnp.abs(e[..., None] - batch["y"]).mean()
-
-    batch = {"h": h, "x": x, "y": y}
-    tx = optax.sgd(1e-2)
-    state = TrainState.create(apply_fn=None, params=kp, tx=tx)
-
-    loss_ref, grads_ref = jax.value_and_grad(loss_fn)(state.params, batch)
-    state_ref = state.apply_gradients(grads_ref)
-
-    dp_step = make_dp_step(loss_fn, mesh)
-    state_dp = replicate_state(state, mesh)
-    batch_dp = shard_batch(batch, mesh)
-    state_dp, loss_dp = jax.jit(dp_step)(state_dp, batch_dp)
-
-    np.testing.assert_allclose(float(loss_dp), float(loss_ref), rtol=1e-5)
-    jax.tree.map(
-        lambda a, b: np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6),
-        jax.device_get(state_dp.params),
-        jax.device_get(state_ref.params),
-    )
-
-
 def test_tp_model_forward_matches_dense(mesh):
     """Coefficient-axis tensor parallelism (tp_model_forward) must equal
     the dense functional model — masked and unmasked — on a model-axis

@@ -218,6 +218,38 @@ def test_pbc_cross_boundary_pair_matches_unwrapped():
     np.testing.assert_allclose(f_p, f_o, rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("cell_list", [False, True])
+def test_pbc_sparse_matches_blocked_dense_with_box(setup, cell_list):
+    """The periodic contract: per-atom outputs of the sparse model equal
+    the masked dense model (evaluated blockwise, minimum-image geometry)
+    on the same neighbor graph, for both neighbor builds."""
+    from sake_tpu.bigsys import blocked_model_forward
+    from sake_tpu.sparse import cell_neighbor_list
+
+    kp, h, _ = setup
+    rng = np.random.RandomState(21)
+    N = h.shape[1]
+    box = (7.0, 8.0, 9.0)
+    x = jnp.asarray(rng.rand(2, N, 3) * np.asarray(box), jnp.float32)
+    if cell_list:
+        idx, m = cell_neighbor_list(x, 2.3, 24, box=box, cell_capacity=32)
+    else:
+        idx, m = neighbor_list(x, 2.3, 24, box=box)
+    bx = jnp.asarray(box, jnp.float32)
+    out_s, _, _ = sparse_model_forward(kp, h, x, idx, m, update=False, box=bx)
+    out_d, _, _ = blocked_model_forward(
+        kp, h, x, update=False, block_size=16,
+        mask=densify_neighbors(idx, m, N), box=bx,
+    )
+    np.testing.assert_allclose(out_s, out_d, **TOL)
+    # without the minimum image the dense model sees another geometry
+    out_o, _, _ = blocked_model_forward(
+        kp, h, x, update=False, block_size=16,
+        mask=densify_neighbors(idx, m, N),
+    )
+    assert np.abs(np.asarray(out_o - out_s)).max() > 1e-3
+
+
 def test_pbc_rollout_wraps_and_stays_finite(setup):
     """Periodic MD rollout: positions stay in the box at sample points,
     trajectory finite."""
@@ -338,7 +370,7 @@ def test_rollout_cell_list_matches_allpairs_build():
 
 def test_neighbor_list_overflow_signal():
     """with_overflow counts in-cutoff senders dropped beyond K exactly
-    (VERDICT r3 item 6: silent K-truncation must be detectable)."""
+    (silent K-truncation must be detectable)."""
     # 5 atoms in a tight cluster: every pair within the cutoff
     x = jnp.asarray(
         np.random.RandomState(0).randn(1, 5, 3) * 0.1, jnp.float32
@@ -404,159 +436,12 @@ def test_rollout_overflow_surface_and_cell_capacity_guard(setup):
         )
     )(kp, x)
     assert int(jnp.asarray(ovfs_ok).max()) == 0
-    # ADVICE r3: cell_capacity without a box must fail loudly
+    # cell_capacity without a box must fail loudly
     with pytest.raises(ValueError, match="cell_capacity"):
         neighborlist_verlet_rollout(
             ef, kp, x, v0, masses, 1e-3, 4,
             cutoff=2.5, max_neighbors=8, cell_capacity=16,
         )
-
-
-def test_sparse_kernel_matches_lax_sparse(setup):
-    """Gen-1 sparse edge kernel (kernels/sparse_ef.py, interpret mode):
-    full-model forward, E+F, and update schedules must match the lax
-    sparse path exactly (which itself equals the masked dense oracle)."""
-    from sake_tpu.kernels.sparse_ef import (
-        make_sparse_kernel_energy_forces,
-        sparse_kernel_model_forward,
-    )
-    from sake_tpu.sparse import make_sparse_energy_forces
-
-    kp, h, x = setup
-    idx, m = neighbor_list(x, 2.5, 16)
-    KTOL = dict(rtol=2e-4, atol=2e-5)
-
-    out_l, x_l, _ = sparse_model_forward(kp, h, x, idx, m)
-    out_k, x_k, _ = sparse_kernel_model_forward(
-        kp, h, x, idx, m, block_rows=8, interpret=True
-    )
-    np.testing.assert_allclose(out_k, out_l, **KTOL)
-    np.testing.assert_allclose(x_k, jnp.asarray(x_l), **KTOL)
-
-    e_l, f_l = make_sparse_energy_forces(h)(kp, x, idx, m)
-    e_k, f_k = make_sparse_kernel_energy_forces(
-        h, block_rows=8, edge_matmul_dtype=None, interpret=True
-    )(kp, x, idx, m)
-    np.testing.assert_allclose(e_k, e_l, **KTOL)
-    np.testing.assert_allclose(f_k, f_l, rtol=5e-4, atol=5e-5)
-
-    # MD configuration (update=False) and a mixed schedule
-    for upd in (False, [True, False]):
-        o_l, _, _ = sparse_model_forward(kp, h, x, idx, m, update=upd)
-        o_k, _, _ = sparse_kernel_model_forward(
-            kp, h, x, idx, m, update=upd, block_rows=8, interpret=True
-        )
-        np.testing.assert_allclose(o_k, o_l, **KTOL)
-
-
-def test_sparse_kernel_param_grads_match_lax(setup):
-    """Round-5 sparse TRAINING path: ``param_grads=True`` puts the
-    edge-scope dW in-kernel (row-contraction accumulation across grid
-    steps); ``jax.grad`` of the energy loss w.r.t. the full ModelParams
-    pytree must match the lax sparse path leaf-for-leaf (f32/interpret
-    tier). This is the gate that lets OC20-scale energy training run on
-    the sparse kernels."""
-    from sake_tpu.kernels.sparse_ef import make_sparse_kernel_energy_loss
-
-    kp, h, x = setup
-    idx, m = neighbor_list(x, 2.5, 16)
-    e_t = jnp.asarray([3.0, -1.0], jnp.float32)
-
-    for upd in (False, True):
-        def lax_loss(p):
-            out, _, _ = sparse_model_forward(p, h, x, idx, m, update=upd)
-            e_b = out.sum(axis=(-2, -1))
-            return jnp.abs(e_b - e_t).mean()
-
-        kern_loss = make_sparse_kernel_energy_loss(
-            h, update=upd, block_rows=8, edge_matmul_dtype=None,
-            interpret=True,
-        )
-        l_l, g_l = jax.value_and_grad(lax_loss)(kp)
-        l_k, g_k = jax.value_and_grad(
-            lambda p: kern_loss(p, x, idx, m, e_t)
-        )(kp)
-        np.testing.assert_allclose(l_k, l_l, rtol=1e-5, atol=1e-6)
-        leaves_l, tdef = jax.tree_util.tree_flatten(g_l)
-        leaves_k, _ = jax.tree_util.tree_flatten(g_k)
-        paths = jax.tree_util.tree_flatten_with_path(g_l)[0]
-        for (path, a), b in zip(paths, leaves_k):
-            a, b = np.asarray(a), np.asarray(b)
-            scale = max(np.abs(a).max(), 1e-8)
-            err = np.abs(a - b).max() / scale
-            assert err < 2e-4, (jax.tree_util.keystr(path), err, upd)
-
-
-@pytest.mark.slow
-def test_sparse_kernel_force_loss_grads_match_lax(setup):
-    """Round-5 SECOND-order sparse training: ``make_sparse_kernel_force_
-    loss`` (force-matching objective, F = -dE/dx) must produce the same
-    loss and the same ModelParams gradients as lax double autodiff
-    through the sparse path — reverse-over-reverse through the nested
-    custom_vjp edge op, with the ∂²E/∂p∂x Hessian terms coming out of
-    the second-order pullback kernel (f32/interpret tier)."""
-    from sake_tpu.kernels.sparse_ef import make_sparse_kernel_force_loss
-
-    kp, h, x = setup
-    idx, m = neighbor_list(x, 2.5, 16)
-    rng = np.random.RandomState(5)
-    f_t = jnp.asarray(rng.randn(*x.shape), jnp.float32)
-    e_t = jnp.asarray([3.0, -1.0], jnp.float32)
-
-    def lax_loss(p):
-        def e_sum(x_):
-            out, _, _ = sparse_model_forward(
-                p, h, x_, idx, m, update=False
-            )
-            e_b = out.sum(axis=(-2, -1))
-            return e_b.sum(), e_b
-
-        (_, e_b), neg_f = jax.value_and_grad(e_sum, has_aux=True)(x)
-        return (
-            jnp.abs(-neg_f - f_t).mean()
-            + 1e-3 * jnp.abs(e_b - e_t).mean()
-        )
-
-    kern_loss = make_sparse_kernel_force_loss(
-        h, block_rows=8, bn2=4, edge_matmul_dtype=None, interpret=True,
-    )
-    l_l, g_l = jax.value_and_grad(lax_loss)(kp)
-    l_k, g_k = jax.value_and_grad(
-        lambda p: kern_loss(p, x, idx, m, f_t, e_t)
-    )(kp)
-    np.testing.assert_allclose(l_k, l_l, rtol=1e-5, atol=1e-6)
-    leaves_k = jax.tree_util.tree_flatten(g_k)[0]
-    paths = jax.tree_util.tree_flatten_with_path(g_l)[0]
-    for (path, a), b in zip(paths, leaves_k):
-        a, b = np.asarray(a), np.asarray(b)
-        scale = max(np.abs(a).max(), 1e-8)
-        err = np.abs(a - b).max() / scale
-        assert err < 5e-4, (jax.tree_util.keystr(path), err)
-
-
-def test_sparse_kernel_node_mask_and_pbc(setup):
-    """Padded receivers (node_mask) and periodic boxes run through the
-    kernel path with the same semantics as the lax sparse path."""
-    from sake_tpu.kernels.sparse_ef import make_sparse_kernel_energy_forces
-    from sake_tpu.sparse import make_sparse_energy_forces
-
-    kp, h, x = setup
-    B, N = x.shape[:2]
-    rng = np.random.RandomState(3)
-    node_mask = jnp.asarray(rng.rand(B, N) > 0.25, jnp.float32)
-    box = (6.0, 6.0, 6.0)
-    xb = x % jnp.asarray(box)
-    idx, m = neighbor_list(xb, 2.5, 16, node_mask=node_mask, box=box)
-
-    e_l, f_l = make_sparse_energy_forces(
-        h, node_mask=node_mask, box=box
-    )(kp, xb, idx, m)
-    e_k, f_k = make_sparse_kernel_energy_forces(
-        h, node_mask=node_mask, box=box, block_rows=8,
-        edge_matmul_dtype=None, interpret=True,
-    )(kp, xb, idx, m)
-    np.testing.assert_allclose(e_k, e_l, rtol=2e-4, atol=2e-5)
-    np.testing.assert_allclose(f_k, f_l, rtol=5e-4, atol=5e-5)
 
 
 def test_cell_list_open_boundary_matches_allpairs():

@@ -24,14 +24,15 @@ def test_cli_overrides_parse_and_apply():
 
     ov = parse_overrides(
         ["molecule=ethanol", "depth=2", "learning_rate=5e-4",
-         "use_kernel_ef=True", "data_dir=None"]
+         "energy_loss_weight=1e-2", "data_dir=None"]
     )
     assert ov == {
         "molecule": "ethanol", "depth": 2, "learning_rate": 5e-4,
-        "use_kernel_ef": True, "data_dir": None,
+        "energy_loss_weight": 1e-2, "data_dir": None,
     }
     _, cfg = get_workload("md17", **ov)
     assert cfg.molecule == "ethanol" and cfg.depth == 2
+    assert cfg.energy_loss_weight == 1e-2
     with pytest.raises(SystemExit):
         parse_overrides(["notanassignment"])
     with pytest.raises(TypeError):
@@ -42,7 +43,7 @@ def test_registry_lists_all_reference_families():
     names = list_workloads()
     for required in [
         "nbody", "md17", "md17_traj", "md17_forecast", "iso17", "qm9",
-        "qm9_tpu", "qm9_aug", "ani", "oc20", "dw4", "dw4_aug", "lj13_aug",
+        "qm9_dp", "qm9_aug", "ani", "oc20", "dw4", "dw4_aug", "lj13_aug",
         "motion", "ablation_egnn", "ablation_no_euclidean",
         "ablation_no_semantic", "ablation_no_spatial", "ablation_no_update",
     ]:
@@ -60,35 +61,19 @@ TINY = {
                 batch_size=32, data_parallel=False),
     "ani": dict(hidden_features=8, depth=2, n_epochs=1, n_samples=128,
                 batch_size=8, max_buckets=3),
-    "oc20_sparse_kernel": dict(hidden_features=8, depth=2, n_epochs=1,
-                               n_samples=32, batch_size=4, max_buckets=2,
-                               sparse_max_neighbors=8, sparse_block_rows=8,
-                               kernel_interpret=True),
     "oc20": dict(hidden_features=8, depth=2, n_epochs=1, n_samples=64,
                  batch_size=4, max_buckets=2),
     "motion": dict(hidden_features=8, depth=2, n_epochs=1, epochs_per_block=1,
                    n_samples=60, batch_size=12),
     "dw4_aug": dict(depth=1, mp_depth=1, hidden_features=8, n_epochs=1,
                     epochs_per_block=1, n_train=100, n_test=50, batch_size=50),
-    # previously-untested registry entries (VERDICT r1 item 6): every
-    # list_workloads() name must run end-to-end in CI.
+    # every list_workloads() name must run end-to-end in CI.
     "md17_traj": dict(hidden_features=8, depth=2, n_epochs=2,
                       epochs_per_block=1, n_train=16, n_valid=8, batch_size=8),
-    "md17_kernel": dict(hidden_features=8, depth=2, n_epochs=1,
-                        epochs_per_block=1, n_train=8, n_valid=4,
-                        batch_size=4, kernel_batch_tile=4, aug_batch_tile=2,
-                        kernel_interpret=True),
     "md17_forecast": dict(hidden_features=8, depth=2, n_epochs=1,
                           epochs_per_block=1, n_samples=60, batch_size=12),
-    "qm9_tpu": dict(hidden_features=8, depth=2, n_epochs=1, n_samples=256,
-                    batch_size=16),  # shard_map DP over the 8 fake devices
-    "qm9_kernel": dict(hidden_features=8, depth=2, n_epochs=1, n_samples=64,
-                       batch_size=16, kernel_batch_tile=4,
-                       kernel_interpret=True),  # Pallas train kernels
-    "qm9_kernel_bucketed": dict(hidden_features=8, depth=2, n_epochs=1,
-                                n_samples=128, batch_size=8,
-                                kernel_batch_tile=4, kernel_interpret=True,
-                                bucket_pad_multiple=8),
+    "qm9_dp": dict(hidden_features=8, depth=2, n_epochs=1, n_samples=256,
+                   batch_size=16),  # shard_map DP over the 8 fake devices
     "dw4": dict(depth=2, hidden_features=8, n_epochs=2, n_train=64, n_test=32),
     "qm9_aug": dict(depth=1, mp_depth=1, hidden_features=8, n_epochs=1,
                     epochs_per_block=1, n_train=48, n_test=16, batch_size=16),
@@ -112,17 +97,9 @@ TINY = {
     "sparse_md": dict(hidden_features=8, depth=2, n_atoms=64, n_steps=8,
                       rebuild_every=4, cutoff=4.0, max_neighbors=16,
                       periodic=True),
-    "sparse_md_kernel": dict(hidden_features=8, depth=2, n_atoms=64,
-                             n_steps=4, rebuild_every=4, cutoff=4.0,
-                             max_neighbors=16, periodic=True,
-                             kernel_block_rows=16, kernel_interpret=True),
     "sparse_train": dict(hidden_features=8, depth=2, n_atoms=48,
                          n_steps=4, steps_per_block=2, cutoff=4.0,
                          max_neighbors=8),
-    "sparse_train_kernel": dict(hidden_features=8, depth=2, n_atoms=48,
-                                n_steps=4, steps_per_block=2, cutoff=4.0,
-                                max_neighbors=8, block_rows=8, bn2=4,
-                                kernel_interpret=True),
 }
 
 
@@ -137,49 +114,6 @@ def test_workload_smoke(name):
     _, results = run(cfg)
     _finite(results)
 
-
-
-@pytest.mark.slow
-def test_ani_kernel_backbone():
-    """ANI bucketed training on the Pallas train-kernel backbone: one
-    kernel compile per bucket edge, masked, end-to-end finite."""
-    from sake_tpu.tasks.ani import ANIConfig, run
-
-    _, results = run(
-        ANIConfig(
-            hidden_features=8,
-            depth=2,
-            n_epochs=1,
-            n_samples=64,
-            batch_size=8,
-            max_buckets=2,
-            use_kernel_backbone=True,
-            kernel_batch_tile=4,
-            kernel_interpret=True,
-        )
-    )
-    _finite(results)
-
-
-@pytest.mark.slow
-def test_oc20_kernel_backbone():
-    """OC20 bucketed training on the Pallas train-kernel backbone."""
-    from sake_tpu.tasks.oc20 import OC20Config, run
-
-    _, results = run(
-        OC20Config(
-            hidden_features=8,
-            depth=2,
-            n_epochs=1,
-            n_samples=32,
-            batch_size=4,
-            max_buckets=2,
-            use_kernel_backbone=True,
-            kernel_batch_tile=4,
-            kernel_interpret=True,
-        )
-    )
-    _finite(results)
 
 
 @pytest.mark.slow
@@ -204,13 +138,10 @@ def test_oc20_bigsys_forward():
     _finite(results)
 
 
-@pytest.mark.slow
-def test_qm9_bucketed_kernel_dp_composition():
-    """The flagship QM9 composition all at once: size-bucketed batches +
-    Pallas train-kernel backbone + shard_map data parallelism over the 8
-    fake devices. Each bucketed group runs through the SAME sharded
-    scanned-epoch program as flat batches (tasks/qm9.py DP branch);
-    per-device batch stays divisible by the kernel batch tile."""
+def test_qm9_bucketed_dp_composition():
+    """Size-bucketed batches + shard_map data parallelism over the 8 fake
+    devices: each bucketed group runs through the SAME sharded
+    scanned-epoch program as flat batches (tasks/qm9.py DP branch)."""
     from sake_tpu.tasks.qm9 import QM9Config, run
 
     _, results = run(
@@ -219,12 +150,9 @@ def test_qm9_bucketed_kernel_dp_composition():
             depth=2,
             n_epochs=1,
             n_samples=256,
-            batch_size=32,  # 8 devices x per-device 4 (== kernel tile)
+            batch_size=32,  # 8 devices x per-device 4
             data_parallel=True,
             bucket_pad_multiple=8,
-            use_kernel_backbone=True,
-            kernel_batch_tile=4,
-            kernel_interpret=True,
         )
     )
     _finite(results)
@@ -288,3 +216,4 @@ def test_sweep_driver_grid(tmp_path):
     )
     assert len(bad) == 2 and not any(c["ok"] for c in bad)
     assert "error" in bad[0]
+

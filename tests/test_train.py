@@ -148,7 +148,7 @@ def test_bucketed_collater_uniform_shapes():
 
 class TestBucketedScanEpoch:
     """The bucketed path must make one dispatch per bucket group (not per
-    batch) and match the per-batch loop exactly (VERDICT r1 weak item 2)."""
+    batch) and match the per-batch loop exactly."""
 
     def _dataset(self):
         from sake_tpu.data.collate import BucketedCollater, BucketedDataset
@@ -229,3 +229,102 @@ class TestBucketedScanEpoch:
         for i, (_, d) in enumerate(out):
             np.testing.assert_allclose(d["x"], np.ones((2, 2)) * i)
             assert isinstance(d["x"], jnp.ndarray)
+
+
+# --- TrainState: a plain registered dataclass --------------------------------
+
+
+def test_train_state_create_and_apply_gradients():
+    import optax
+
+    params = {"w": jnp.ones((3,)), "b": jnp.zeros(())}
+    state = TrainState.create(apply_fn=None, params=params, tx=optax.sgd(0.5))
+    assert int(state.step) == 0 and state.step.dtype == jnp.int32
+    grads = {"w": jnp.full((3,), 2.0), "b": jnp.asarray(1.0)}
+    state = state.apply_gradients(grads)
+    assert int(state.step) == 1
+    np.testing.assert_allclose(state.params["w"], [0.0, 0.0, 0.0])
+    np.testing.assert_allclose(state.params["b"], -0.5)
+
+
+def test_train_state_replace_is_functional():
+    state = _toy_state()
+    new = state.replace(step=jnp.asarray(5, jnp.int32))
+    assert int(new.step) == 5 and int(state.step) == 0
+    assert new.tx is state.tx and new.apply_fn is state.apply_fn
+    with np.testing.assert_raises(Exception):
+        state.step = jnp.asarray(1)  # frozen
+
+
+def test_train_state_flatten_unflatten():
+    """Only step, params and opt_state are leaves; apply_fn and tx ride in
+    the treedef, so jit treats them as static."""
+    state = _toy_state()
+    leaves, treedef = jax.tree.flatten(state)
+    n_opt = len(jax.tree.leaves(state.opt_state))
+    assert len(leaves) == 1 + 2 + n_opt
+    back = jax.tree.unflatten(treedef, leaves)
+    assert back.apply_fn is state.apply_fn and back.tx is state.tx
+    jax.tree.map(np.testing.assert_array_equal, back, state)
+    doubled = jax.tree.map(lambda a: a * 2, state)
+    np.testing.assert_array_equal(doubled.params["w"], 2 * state.params["w"])
+
+
+def test_train_state_jit_with_donation():
+    state = _toy_state()
+    grads = jax.tree.map(jnp.ones_like, state.params)
+    expected = state.apply_gradients(grads)
+    step = jax.jit(lambda s, g: s.apply_gradients(g), donate_argnums=0)
+    out = step(jax.tree.map(jnp.copy, state), grads)
+    assert int(out.step) == 1
+    jax.tree.map(np.testing.assert_allclose, out.params, expected.params)
+
+
+def test_train_state_needs_no_flax():
+    """The state module imports no flax (the main path runs without it)."""
+    import subprocess
+    import sys
+
+    code = (
+        "import sys; sys.modules['flax'] = None\n"
+        "import optax, jax.numpy as jnp\n"
+        "from sake_tpu.train.state import TrainState\n"
+        "s = TrainState.create(apply_fn=None, params=jnp.ones(2), "
+        "tx=optax.adam(1e-3))\n"
+        "print(int(s.apply_gradients(jnp.ones(2)).step))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=300,
+    )
+    assert proc.returncode == 0 and proc.stdout.strip() == "1", proc.stderr
+
+
+# --- persistent compilation cache --------------------------------------------
+
+
+def test_compile_cache_honours_env_var(monkeypatch, tmp_path):
+    from sake_tpu import compile_cache
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.compile_cache_dir() == str(tmp_path)
+    assert compile_cache.enable_compile_cache() == str(tmp_path)
+    # JAX reads the variable itself; nothing in code overrides it
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_defaults_to_repo_dir(monkeypatch):
+    import os
+
+    from sake_tpu import compile_cache
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        path = compile_cache.enable_compile_cache()
+        assert path == os.path.join(repo, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
